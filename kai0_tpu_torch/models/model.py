@@ -1,0 +1,72 @@
+"""Model inputs and the eval branch of observation preprocessing, PyTorch.
+
+Counterpart of ``kai0_tpu/models/model.py``: ``Observation`` with the
+nested-dict contract of ``from_dict`` (uint8 images mapped to [-1, 1]) and
+``preprocess_observation`` without training augmentation. Resizing is not
+ported: images must already be 224×224.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+# The model always expects these images.
+IMAGE_KEYS = (
+    "base_0_rgb",
+    "left_wrist_0_rgb",
+    "right_wrist_0_rgb",
+)
+
+IMAGE_RESOLUTION = (224, 224)
+
+
+def _to_float_image(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.uint8:
+        return x.to(torch.float32) / 255.0 * 2.0 - 1.0
+    return x
+
+
+@dataclasses.dataclass
+class Observation:
+    """Model inputs: images ``[B, H, W, 3]`` in [-1, 1], keyed by camera name."""
+
+    images: dict[str, torch.Tensor]
+    image_masks: dict[str, torch.Tensor]
+    state: torch.Tensor
+    tokenized_prompt: torch.Tensor | None = None
+    tokenized_prompt_mask: torch.Tensor | None = None
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "Observation":
+        """From the transform-chain dict: ``image``, ``image_mask``, ``state``, ``tokenized_prompt[_mask]``."""
+        if ("tokenized_prompt" in data) != ("tokenized_prompt_mask" in data):
+            raise ValueError("tokenized_prompt and tokenized_prompt_mask must be provided together.")
+        return cls(
+            images={k: _to_float_image(v) for k, v in data["image"].items()},
+            image_masks=dict(data["image_mask"]),
+            state=data["state"],
+            tokenized_prompt=data.get("tokenized_prompt"),
+            tokenized_prompt_mask=data.get("tokenized_prompt_mask"),
+        )
+
+
+def preprocess_observation(observation: Observation) -> Observation:
+    """Check the images and default-fill missing image masks with True."""
+    if not set(IMAGE_KEYS).issubset(observation.images):
+        raise ValueError(f"images dict missing keys: expected {IMAGE_KEYS}, got {list(observation.images)}")
+    batch_shape = observation.state.shape[:-1]
+    out_images, out_masks = {}, {}
+    for key in IMAGE_KEYS:
+        image = observation.images[key]
+        if tuple(image.shape[1:3]) != IMAGE_RESOLUTION:
+            raise ValueError(
+                f"image {key} is {tuple(image.shape[1:3])}, the port needs {IMAGE_RESOLUTION} (resizing is not ported)"
+            )
+        out_images[key] = image
+        if key in observation.image_masks:
+            out_masks[key] = torch.as_tensor(observation.image_masks[key], device=image.device)
+        else:
+            out_masks[key] = torch.ones(batch_shape, dtype=torch.bool, device=image.device)
+    return dataclasses.replace(observation, images=out_images, image_masks=out_masks)

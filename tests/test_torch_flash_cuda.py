@@ -1,0 +1,155 @@
+"""The CUDA attention kernels of kai0_tpu_torch against their plain PyTorch versions.
+
+This file imports no JAX, so that the card's machine (which has none) can run it
+without the repository's conftest:
+
+    python -m pytest tests/test_torch_flash_cuda.py -m cuda --noconftest -q
+
+The ``cuda`` tests skip where no card is present. Tolerances, with unit-normal
+inputs and q scaled by head_dim**-0.5: max abs 1e-4 in f32 (summation order);
+in bf16 max abs 2e-2 and mean abs 2e-3 (the kernel rounds the unnormalised
+softmax weights to bf16, the plain version the normalised probabilities).
+"""
+
+import pathlib
+
+import pytest
+import torch
+
+from kai0_tpu_torch.ops import _build
+from kai0_tpu_torch.ops import flash_attention as fa
+from kai0_tpu_torch.ops.masks import make_attn_mask
+
+TOL = {torch.float32: (1e-4, None), torch.bfloat16: (2e-2, 2e-3)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 matmuls stay f32
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _serving_mask(t: int, s: int, device) -> torch.Tensor:
+    """Prefix validity as serving builds it (one camera masked, a padded prompt); denoise rows for t < s."""
+    prefix = torch.ones(1, 968, dtype=torch.bool, device=device)
+    prefix[:, 512:768] = False
+    prefix[:, 818:] = False
+    ar = torch.zeros(968, dtype=torch.bool, device=device)
+    if t == s == 968:
+        return make_attn_mask(prefix, ar)
+    suffix = make_attn_mask(torch.ones(1, t, dtype=torch.bool, device=device), torch.arange(t, device=device) == 0)
+    return torch.cat([prefix[:, None, :].expand(1, t, 968), suffix], dim=-1).contiguous()
+
+
+def _assert_close(out, ref, dtype):
+    max_tol, mean_tol = TOL[dtype]
+    err = (out.float() - ref.float()).abs()
+    assert err.max().item() <= max_tol, err.max().item()
+    if mean_tol is not None:
+        assert err.mean().item() <= mean_tol, err.mean().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,s", [(968, 968), (50, 1018)])
+def test_flash_mha_kernel_matches_plain(cuda, dtype, t, s):
+    g = torch.Generator(device=cuda).manual_seed(t)
+    q = (torch.randn(1, t, 8, 256, generator=g, device=cuda) / 16).to(dtype)
+    k, v = (torch.randn(1, s, 1, 256, generator=g, device=cuda).to(dtype) for _ in range(2))
+    mask = _serving_mask(t, s, cuda)
+    before = fa.LAUNCHES["flash_mha"]
+    out, lse = fa.flash_mha_fwd(q, k, v, mask)
+    ref = fa.flash_mha_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_mha"] == before + 1
+    assert out.shape == q.shape and out.dtype == dtype and lse.shape == (1, t * 8)
+    _assert_close(out, ref, dtype)
+    _assert_close(fa.flash_mha(q, k, v, mask[:, None]), ref, dtype)  # [B,1,T,S] masks too
+
+    logits = torch.einsum("btnh,bsh->btns", q.float(), k[:, :, 0].float())
+    logits = torch.where(mask[:, :, None, :], logits, fa.BIG_NEG)
+    valid = mask.any(dim=-1).repeat_interleave(8, dim=1)  # lse of fully masked rows is BIG_NEG-sized
+    torch.testing.assert_close(lse[valid], torch.logsumexp(logits, dim=-1).reshape(1, -1)[valid], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_mhsa_kernel_matches_plain(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = (torch.randn(3, 16, 256, 72, generator=g, device=cuda) / 72**0.5).to(dtype)
+    k, v = (torch.randn(3, 16, 256, 72, generator=g, device=cuda).to(dtype) for _ in range(2))
+    out, lse = fa.flash_mhsa_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert lse.shape == (3, 16, 256)
+    _assert_close(out, fa.flash_mhsa_plain(q, k, v), dtype)
+    torch.testing.assert_close(lse, torch.logsumexp(torch.einsum("bnth,bnsh->bnts", q.float(), k.float()), -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,s", [(2, 37, 131), (3, 1, 64), (1, 130, 65)])
+def test_ragged_shapes_and_random_masks(cuda, b, t, s):
+    """Row tiles and key tiles that end mid-tile, batch > 1, rows with every key masked."""
+    g = torch.Generator(device=cuda).manual_seed(b * t + s)
+    q = torch.randn(b, t, 8, 256, generator=g, device=cuda) / 16
+    k, v = (torch.randn(b, s, 1, 256, generator=g, device=cuda) for _ in range(2))
+    mask = torch.rand(b, t, s, generator=g, device=cuda) < 0.5
+    mask[:, ::3] = False  # fully masked rows
+    _assert_close(fa.flash_mha(q, k, v, mask), fa.flash_mha_plain(q, k, v, mask), torch.float32)
+    qh = torch.randn(b, 16, t, 72, generator=g, device=cuda) / 72**0.5
+    kh, vh = (torch.randn(b, 16, s, 72, generator=g, device=cuda) for _ in range(2))
+    _assert_close(fa.flash_mhsa(qh, kh, vh), fa.flash_mhsa_plain(qh, kh, vh), torch.float32)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.randn(1, 16, 8, 128, device=cuda)
+    k = torch.randn(1, 16, 1, 128, device=cuda)
+    mask = torch.ones(1, 16, 16, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_mha(q, k, k, mask)
+    q = torch.randn(1, 16, 8, 256, device=cuda)
+    k = torch.randn(1, 16, 1, 256, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_mha(q.half(), k.half(), k.half(), mask)
+    with pytest.raises(ValueError, match="non-contiguous"):
+        fa.flash_mha(q.transpose(1, 2).contiguous().transpose(1, 2), k, k, mask)
+    with pytest.raises(ValueError, match="mask"):
+        fa.flash_mha(q, k, k, mask.float())
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_mhsa(*(torch.randn(1, 2, 64, 64, device=cuda) for _ in range(3)))
+
+
+def test_cpu_tensors_take_the_plain_path():
+    q, k, v = torch.randn(1, 4, 8, 256), torch.randn(1, 6, 1, 256), torch.randn(1, 6, 1, 256)
+    mask = torch.ones(1, 4, 6, dtype=torch.bool)
+    before = dict(fa.LAUNCHES)
+    torch.testing.assert_close(fa.flash_mha(q, k, v, mask), fa.flash_mha_plain(q, k, v, mask), rtol=0, atol=0)
+    x = torch.randn(1, 2, 8, 72)
+    torch.testing.assert_close(fa.flash_mhsa(x, x, x), fa.flash_mhsa_plain(x, x, x), rtol=0, atol=0)
+    assert fa.LAUNCHES == before
+
+
+def test_build_raises_without_nvcc(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not list(tmp_path.glob("*.so"))
+
+
+def test_library_is_named_by_the_sources(tmp_path, monkeypatch):
+    name = _build.library_path().name
+    assert name.startswith("kai0_kernels_") and name.endswith(".so")
+    assert _build.library_path().parent == pathlib.Path(_build.BUILD_DIR)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in _build.CSRC.iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert _build.library_path().name == name
+    (csrc / "flash_mqa_fwd.cu").write_text((csrc / "flash_mqa_fwd.cu").read_text() + "\n// changed\n")
+    assert _build.library_path().name != name
