@@ -5,15 +5,18 @@
 Phases, none of which catches an error (any failure exits non-zero):
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
-2. Build both attention kernels from ``kai0_tpu_torch/ops/csrc`` with nvcc.
-3. Hold each kernel against its plain PyTorch version at the serving shapes,
-   in f32 and bf16: the Gemma prefill (T=S=968: 3x256 image tokens with one
-   camera masked + 200 prompt tokens, 150 of them padding), the denoise step
-   (T=50 against S=1018), and SigLIP ([3,16,256,72]). Inputs are unit normal,
-   q scaled by head_dim**-0.5 as its callers do. Tolerances: max abs <= 1e-4 in
-   f32; max abs <= 2e-2 and mean abs <= 2e-3 in bf16 (the kernel rounds the
-   unnormalised softmax weights to bf16, the plain version the normalised ones).
-   Times are CUDA-event medians of 30 runs after warm-up.
+2. Build every kernel from ``kai0_tpu_torch/ops/csrc`` with nvcc (one process
+   per source, all started together).
+3. Hold each forward kernel against its plain PyTorch version at the serving
+   shapes, in f32 and bf16: the Gemma prefill (T=S=968: 3x256 image tokens with
+   one camera masked + 200 prompt tokens, 150 of them padding), the denoise
+   step (T=50 against S=1018), and SigLIP ([3,16,256,72]). Inputs are unit
+   normal, q scaled by head_dim**-0.5 as its callers do. Tolerances: max abs
+   <= 1e-4 in f32; max abs <= 2e-2 and mean abs <= 2e-3 in bf16 (the kernel
+   rounds the unnormalised softmax weights to bf16, the plain version the
+   normalised ones). Times are CUDA-event medians of 30 runs after warm-up,
+   beside ``scaled_dot_product_attention`` on the same inputs (a yardstick the
+   port never calls; its fully masked rows differ).
 4. Serve 5 requests through ``Policy.infer`` with the full-width π₀.₅ model
    (Gemma-2B + Gemma-300M, So400m/14, bf16, seeded random weights) at batch 1,
    counting kernel launches per request (27 flash_mhsa, 198 flash_mha), and
@@ -22,13 +25,43 @@ Phases, none of which catches an error (any failure exits non-zero):
 5. Reference at full width: the same architecture in f32 samples one chunk on
    the card (kernels) and on the host CPU (plain versions) from the same
    weights and noise; the two must agree within 1e-3.
+6. Attention at the training shapes, forward and backward kernels against the
+   plain version and its autograd: MQA at B=2, T=S=1018 with the training mask
+   (3x256 image tokens, one camera masked in one sample, 200 prompt tokens with
+   padding, 50 action tokens behind the ar mask), SigLIP at [6,16,256,72];
+   f32 and bf16, unit-normal inputs and a unit-normal dO that is non-zero on
+   the fully masked rows. Tolerances per gradient: max abs <= 1e-4 x max |grad|
+   in f32, <= 2e-2 x max |grad| in bf16. Times beside SDPA forward+backward.
+7. The 8-bit AdamW kernel on a [2048, 16384] bf16 leaf (Gemma-2B's FFN) with
+   moments from two earlier steps. Deterministic mode: scales bit-equal, codes
+   within 1 on at most 1e-5 of the elements, update within 1e-6 relative.
+   Stochastic mode: the first moment decoded after each of 64 seeds, averaged,
+   is within 3e-3 of the exact f32 moment in mean signed relative error (the
+   log grid's own bias is at most cosh(step/2) - 1 = 2.0e-3).
+8. Gradients of the model at full width, depth cut to 2 (both Gemma experts
+   and SigLIP), f32, batch 2, fixed noise, time and augmentation: the card
+   (kernels) and the host CPU (plain versions) give every parameter gradient
+   within 1e-3 x that tensor's max abs (at least 1e-6 x the largest gradient:
+   softmax cancels the gradient of SigLIP's key bias, which is rounding noise
+   in both), and every parameter group (SigLIP,
+   Gemma-2B, the action expert, the projections) gets a non-zero gradient.
+9. The main path: 5 full fine-tune steps of π₀.₅ at full width on one card
+   at batch 32, bf16 parameters with stochastically rounded updates, 8-bit
+   AdamW moments, no EMA, per-block recompute, augmentation on, the default
+   cosine schedule, on seeded synthetic batches. Per step: wall ms between synchronizes,
+   samples/s, loss, grad_norm, peak GiB, launches (36/18 flash_mha
+   forward/backward, 54/27 flash_mhsa, one adam_q8 per parameter tensor).
+   A second run from the same seed must give identical losses; its last step
+   runs under torch.profiler for device time by kernel family.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (times in bf16 at the
+training shapes; ``launches`` from the first 5-step run); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -39,8 +72,21 @@ import numpy as np
 import torch
 
 REQUESTS = 5
+TRAIN_STEPS = 5
+TRAIN_BATCH = 32  # per card: kai0's fine-tunes run a global batch of 256 on 8 cards
 TOL = {"float32": {"max": 1e-4}, "bfloat16": {"max": 2e-2, "mean": 2e-3}}
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FULL_WIDTH_TOL = 1e-3
+MODEL_GRAD_TOL = 1e-3
+Q8_BIAS_TOL = 3e-3
+
+# NVIDIA's data-sheet peaks of the H100 SXM at 700 W (dense).
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
+Q8_OPS_PER_ELEMENT = 40  # f32 operations of decode, recurrence, update, absmax and encode
+# Model FLOP of one π₀.₅ training sample, forward + backward without recompute
+# (scripts/bench_full_finetune.py ANALYTIC_MODEL_FLOPS_PER_SAMPLE["full"]).
+MODEL_FLOPS_PER_SAMPLE = 13.8e12
 
 
 def _check(cond, msg: str) -> None:
@@ -62,6 +108,27 @@ def _cuda_ms(fn, runs: int = 30) -> float:
     return statistics.median(times)
 
 
+def _nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(flops: float, nbytes: int, dtype: torch.dtype) -> tuple[float, str]:
+    """The least time (ms) for the work on one H100, and which of operations or bytes sets it."""
+    ops_s, bytes_s = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def _mqa_flops(mask: torch.Tensor, n: int, h: int, products: int) -> int:
+    """Operations of masked MQA with n heads of h: 2·n·h per product per (query row, unmasked key).
+
+    A fully masked row adds the mean of V over its S keys (2·n·h·S). The forward
+    has 2 products (QKᵀ, PV), the backward 5 (QKᵀ, dO·Vᵀ, Pᵀ·dO, dS·K, dSᵀ·Q).
+    """
+    pairs = mask.sum().item()
+    dead = (~mask.any(dim=-1)).sum().item()
+    return 2 * n * h * (products * pairs + mask.shape[-1] * dead)
+
+
 def _prefix_mask(prompt_used: int = 50):
     """Serving prefix validity: 3 cameras x 256 tokens (the third masked) + 200 prompt tokens."""
     mask = torch.ones(1, 968, dtype=torch.bool, device="cuda")
@@ -70,7 +137,28 @@ def _prefix_mask(prompt_used: int = 50):
     return mask
 
 
-def check_kernels() -> dict:
+def _sdpa(q, k, v, mask=None, dout=None):
+    """One ``scaled_dot_product_attention`` call on the kernels' inputs: forward, or forward+backward with ``dout``.
+
+    With a mask, q is the MQA layout [B,T,N,H] and k/v [B,S,1,H] are expanded to
+    the N query heads; without one, q/k/v are head-major [B,N,T,H]. q is
+    pre-scaled, so ``scale=1``.
+    """
+    import torch.nn.functional as F
+
+    if mask is not None:
+        n = q.shape[2]
+        q = q.transpose(1, 2)
+        k, v = (x.transpose(1, 2).expand(-1, n, -1, -1).contiguous() for x in (k, v))
+        mask = mask[:, None]
+        dout = None if dout is None else dout.transpose(1, 2)
+    if dout is None:
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+    q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0).backward(dout)
+
+
+def check_kernels() -> None:
     from kai0_tpu_torch.ops import flash_attention as fa
     from kai0_tpu_torch.ops.masks import make_attn_mask
 
@@ -96,16 +184,17 @@ def check_kernels() -> dict:
         ("flash_mha", "denoise T=50 S=1018", (normal(1, 50, 8, 256) / 16, normal(1, 1018, 1, 256), normal(1, 1018, 1, 256)), denoise_mask),
         ("flash_mhsa", "siglip [3,16,256,72]", (normal(3, 16, 256, 72) / 72**0.5, normal(3, 16, 256, 72), normal(3, 16, 256, 72)), None),
     ]
-    record = {}
     for name, label, qkv, mask in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (x.to(dtype) for x in qkv)
             if name == "flash_mha":
                 kernel = lambda: fa.flash_mha_fwd(q, k, v, mask)  # noqa: E731
                 plain = lambda: fa.flash_mha_plain(q, k, v, mask)  # noqa: E731
+                library = _sdpa(q, k, v, mask)
             else:
                 kernel = lambda: fa.flash_mhsa_fwd(q, k, v)  # noqa: E731
                 plain = lambda: fa.flash_mhsa_plain(q, k, v)  # noqa: E731
+                library = _sdpa(q, k, v)
             out, lse = kernel()
             ref = plain()
             torch.cuda.synchronize()
@@ -115,17 +204,16 @@ def check_kernels() -> dict:
             _check(torch.isfinite(out).all() and torch.isfinite(lse).all(), f"{name} {label}: non-finite output")
             _check(max_err <= tol["max"], f"{name} {label} {dtype}: max abs err {max_err} > {tol['max']}")
             _check(mean_err <= tol.get("mean", float("inf")), f"{name} {label} {dtype}: mean abs err {mean_err}")
-            ms, plain_ms = _cuda_ms(kernel), _cuda_ms(plain)
+            ms, plain_ms, sdpa_ms = _cuda_ms(kernel), _cuda_ms(plain), _cuda_ms(library)
+            if name == "flash_mha":
+                flops, nbytes = _mqa_flops(mask, 8, 256, 2), _nbytes(q, k, v, mask, out, lse)
+            else:
+                flops, nbytes = 4 * q.shape[0] * q.shape[1] * q.shape[2] * k.shape[2] * q.shape[3], _nbytes(q, k, v, out, lse)
+            bound_ms, bound_by = _bound(flops, nbytes, dtype)
             print(
                 f"kernel {name} {label} {str(dtype)[6:]}: max_abs_err={max_err:.3e} mean_abs_err={mean_err:.3e} "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={sdpa_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})"
             )
-            if dtype == torch.bfloat16:
-                entry = record.setdefault(name, {"max_abs_err": 0.0, "ms": None, "plain_ms": None})
-                entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
-                if entry["ms"] is None:  # the first (prefill / SigLIP) shape is the one recorded
-                    entry["ms"], entry["plain_ms"] = ms, plain_ms
-    return record
 
 
 def _request_inputs(rng: np.random.Generator) -> dict:
@@ -175,13 +263,14 @@ def serve() -> dict:
         launches = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
         print(f"request {i}: wall_ms={wall_ms:.2f} infer_ms={out['policy_timing']['infer_ms']:.2f} "
               f"peak_mem_gib={peak_gib:.3f} launches={launches}")
-        _check(launches == {"flash_mhsa": 27, "flash_mha": 18 + 10 * 18}, f"request {i}: launches {launches}")
+        _check(launches == {"flash_mhsa": 27, "flash_mha": 18 + 10 * 18, "flash_mha_bwd": 0, "flash_mhsa_bwd": 0},
+               f"request {i}: launches {launches}")
         a = out["actions"]
         _check(a.shape == (50, 32) and a.dtype == np.float32, f"actions {a.shape} {a.dtype}")
         _check(np.isfinite(a).all(), "non-finite actions")
         actions.append(a)
         per_request.append(wall_ms)
-    main_path_launches = dict(fa.LAUNCHES)
+    serve_launches = dict(fa.LAUNCHES)
     for i in (1, 2, 3):
         _check(np.array_equal(actions[i], actions[0]), f"request {i}: same noise, different actions")
     _check(not np.array_equal(actions[4], actions[0]), "other noise gave the same actions")
@@ -190,7 +279,7 @@ def serve() -> dict:
           f"{[round(x, 2) for x in per_request[1:]]} (request 0 includes first-use set-up)")
     del policy, model
     torch.cuda.empty_cache()
-    return main_path_launches
+    return serve_launches
 
 
 def full_width_reference() -> None:
@@ -213,6 +302,373 @@ def full_width_reference() -> None:
           f"(|actions| max {np.abs(on_host['actions']).max():.3f}; card {on_card['policy_timing']['infer_ms']:.1f} ms, "
           f"host {on_host['policy_timing']['infer_ms']:.1f} ms)")
     _check(np.isfinite(on_card["actions"]).all() and err <= FULL_WIDTH_TOL, f"full-width f32 mismatch {err}")
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def _training_mask(batch: int) -> torch.Tensor:
+    """The joint [prefix, suffix] mask of ``compute_loss``: bool [B, 1018, 1018]."""
+    from kai0_tpu_torch.ops.masks import make_attn_mask
+
+    valid = torch.ones(batch, 1018, dtype=torch.bool, device="cuda")
+    valid[0, 512:768] = False  # one camera masked in one sample
+    for b in range(batch):
+        valid[b, 768 + 40 + 30 * b : 968] = False  # padded prompt
+    ar = torch.zeros(1018, dtype=torch.bool, device="cuda")
+    ar[968] = True
+    return make_attn_mask(valid, ar)
+
+
+def _grad_errors(got, want) -> list[float]:
+    """Per gradient (q, k, v): max abs error over max |grad|."""
+    errs = []
+    for a, b in zip(got, want, strict=True):
+        _check(a.dtype == b.dtype and a.shape == b.shape and torch.isfinite(a.float()).all(), "gradient dtype/shape")
+        scale = b.float().abs().max().item()
+        _check(scale > 0, "zero reference gradient")
+        errs.append((a.float() - b.float()).abs().max().item() / scale)
+    return errs
+
+
+def check_attention_training() -> dict:
+    """Phase 6: forward and backward attention kernels at the training shapes."""
+    from kai0_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    mask = _training_mask(2)
+    dead = (~mask.any(dim=-1)).sum().item()
+    _check(dead > 0, "the training mask should have fully masked rows")
+    record = {}
+    for name in ("flash_mha", "flash_mhsa"):
+        if name == "flash_mha":
+            shape_q, shape_kv, label = (2, 1018, 8, 256), (2, 1018, 1, 256), "B=2 T=S=1018"
+            fwd_flops, bwd_flops = _mqa_flops(mask, 8, 256, 2), _mqa_flops(mask, 8, 256, 5)
+        else:
+            shape_q = shape_kv = (6, 16, 256, 72)
+            label = "[6,16,256,72]"
+            fwd_flops, bwd_flops = 4 * 6 * 16 * 256 * 256 * 72, 10 * 6 * 16 * 256 * 256 * 72
+        base = [torch.randn(shp, generator=gen, device="cuda") for shp in (shape_q, shape_kv, shape_kv, shape_q)]
+        base[0] /= base[0].shape[-1] ** 0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = (x.to(dtype) for x in base)
+            if name == "flash_mha":
+                extra = (mask,)
+                fwd = lambda: fa.flash_mha_fwd(q, k, v, mask)  # noqa: E731
+                plain_fwd = lambda: fa.flash_mha_plain(q, k, v, mask)  # noqa: E731
+                out, lse = fwd()
+                bwd = lambda: fa.flash_mha_bwd(q, k, v, mask, out, lse, dout)  # noqa: E731
+                plain_bwd = lambda: fa.flash_mha_bwd_plain(q, k, v, mask, dout)  # noqa: E731
+            else:
+                extra = ()
+                fwd = lambda: fa.flash_mhsa_fwd(q, k, v)  # noqa: E731
+                plain_fwd = lambda: fa.flash_mhsa_plain(q, k, v)  # noqa: E731
+                out, lse = fwd()
+                bwd = lambda: fa.flash_mhsa_bwd(q, k, v, out, lse, dout)  # noqa: E731
+                plain_bwd = lambda: fa.flash_mhsa_bwd_plain(q, k, v, dout)  # noqa: E731
+            fwd_err = (out.float() - plain_fwd().float()).abs()
+            tol = TOL[str(dtype)[6:]]
+            _check(fwd_err.max().item() <= tol["max"] and fwd_err.mean().item() <= tol.get("mean", 1.0),
+                   f"{name} forward {label} {dtype}: max {fwd_err.max().item()} mean {fwd_err.mean().item()}")
+            grads, ref_grads = bwd(), plain_bwd()
+            errs = _grad_errors(grads, ref_grads)
+            _check(max(errs) <= GRAD_TOL[str(dtype)[6:]], f"{name}_bwd {label} {dtype}: relative errors {errs}")
+            times = {key: _cuda_ms(fn, runs=10) for key, fn in (
+                ("fwd", fwd), ("plain_fwd", plain_fwd), ("sdpa_fwd", _sdpa(q, k, v, *extra)),
+                ("bwd", bwd), ("plain_bwd", plain_bwd), ("sdpa_fwd_bwd", _sdpa(q, k, v, *extra, dout=dout)),
+            )}
+            print(f"kernel {name} training {label} {str(dtype)[6:]}: fwd max_abs_err={fwd_err.max().item():.3e} "
+                  f"bwd max_err/max|grad| (q,k,v)={[f'{e:.3e}' for e in errs]} "
+                  + " ".join(f"{key}_ms={t:.4f}" for key, t in times.items()))
+            if dtype != torch.bfloat16:
+                continue
+            bwd_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref_grads, strict=True))
+            for key, flops, nbytes, err, ms, plain_ms, lib_ms in (
+                (name, fwd_flops, _nbytes(q, k, v, *extra, out, lse), fwd_err.max().item(),
+                 times["fwd"], times["plain_fwd"], times["sdpa_fwd"]),
+                (f"{name}_bwd", bwd_flops, _nbytes(q, k, v, *extra, out, dout, lse, *grads), bwd_err,
+                 times["bwd"], times["plain_bwd"], times["sdpa_fwd_bwd"]),
+            ):
+                bound_ms, bound_by = _bound(flops, nbytes, dtype)
+                record[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by, "library_ms": lib_ms}
+                print(f"  {key}: bound_ms={bound_ms:.4f} ({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    return record
+
+
+def check_adam_q8() -> dict:
+    """Phase 7: K3 on a Gemma-2B FFN leaf against its plain version."""
+    from kai0_tpu_torch.ops import adam_q8 as q8
+
+    shape, b1, b2, a, b = (2048, 16384), 0.9, 0.95, 1.7, 2e-8
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    mq = torch.zeros(shape, dtype=torch.int8, device="cuda")
+    vq = torch.zeros(shape, dtype=torch.uint8, device="cuda")
+    ms, vs = (torch.zeros(q8.num_blocks(mq.numel()), device="cuda") for _ in range(2))
+    for seed in (1, 2):  # two earlier steps put every code and scale in use
+        g = (torch.randn(shape, generator=gen, device="cuda") * 1e-3).bfloat16()
+        q8.adam_q8_leaf_plain(g, mq, ms, vq, vs, a, b, seed, b1=b1, b2=b2, deterministic=False)
+    g = (torch.randn(shape, generator=gen, device="cuda") * 1e-3).bfloat16()
+    state = (mq, ms, vq, vs)
+
+    k_state, p_state = [x.clone() for x in state], [x.clone() for x in state]
+    out = q8.adam_q8_leaf(g, *k_state, a, b, 3, b1=b1, b2=b2, deterministic=True)
+    ref = q8.adam_q8_leaf_plain(g, *p_state, a, b, 3, b1=b1, b2=b2, deterministic=True)
+    torch.cuda.synchronize()
+    rel = ((out.float() - ref.float()).abs() / ref.float().abs().clamp_min(1e-30)).max().item()
+    max_err = (out.float() - ref.float()).abs().max().item()
+    _check(rel <= 1e-6, f"adam_q8 update relative error {rel}")
+    _check(torch.equal(k_state[1], p_state[1]) and torch.equal(k_state[3], p_state[3]), "adam_q8 scales differ")
+    for i in (0, 2):
+        diff = (k_state[i].int() - p_state[i].int()).abs()
+        frac = (diff > 0).float().mean().item()
+        _check(diff.max().item() <= 1 and frac <= 1e-5, f"adam_q8 codes: max diff {diff.max().item()}, share {frac}")
+
+    exact_m = b1 * q8.q8_decode(mq, ms) + (1 - b1) * g.float()
+    mean_m = torch.zeros_like(exact_m)
+    for seed in range(64):
+        ks = [x.clone() for x in state]
+        q8.adam_q8_leaf(g, *ks, a, b, 1000 + seed, b1=b1, b2=b2)
+        mean_m += q8.q8_decode(ks[0], ks[1]) / 64
+    big = exact_m.abs() > 1e-6 * exact_m.abs().amax()
+    bias = ((mean_m - exact_m)[big] / exact_m[big].abs()).mean().item()
+    _check(abs(bias) <= Q8_BIAS_TOL, f"adam_q8 stochastic rounding bias {bias}")
+
+    work = [x.clone() for x in state]  # timed runs keep updating this copy in place: the same work each time
+    kernel_ms = _cuda_ms(lambda: q8.adam_q8_leaf(g, *work, a, b, 3, b1=b1, b2=b2), runs=10)
+    plain_ms = _cuda_ms(lambda: q8.adam_q8_leaf_plain(g, *work, a, b, 3, b1=b1, b2=b2, deterministic=False), runs=5)
+    nbytes = _nbytes(g, out) + 2 * _nbytes(mq, vq, ms, vs)  # g read, update written, codes and scales read and written
+    bound_ms, bound_by = _bound(Q8_OPS_PER_ELEMENT * g.numel(), nbytes, torch.float32)
+    print(f"kernel adam_q8 [2048,16384] bf16: update max_abs_err={max_err:.3e} (relative {rel:.3e}), "
+          f"stochastic mean relative bias over 64 seeds={bias:.3e}; kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}, {nbytes / 1e6:.1f} MB)")
+    return {"adam_q8": {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None}}
+
+
+def _train_batch(seed: int, batch: int, device="cuda"):
+    """A seeded synthetic batch: 3 uint8 cameras (one masked in sample 0), a padded prompt, state, actions."""
+    from kai0_tpu_torch.models.model import IMAGE_KEYS, Observation
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lengths = torch.randint(20, 200, (batch,), generator=gen, device=device)
+    obs = Observation.from_dict({
+        "image": {k: torch.randint(0, 256, (batch, 224, 224, 3), generator=gen, device=device, dtype=torch.uint8)
+                  for k in IMAGE_KEYS},
+        "image_mask": {k: (torch.arange(batch, device=device) > 0) | (k != "right_wrist_0_rgb") for k in IMAGE_KEYS},
+        "state": torch.randn(batch, 32, generator=gen, device=device),
+        "tokenized_prompt": torch.randint(0, 257_152, (batch, 200), generator=gen, device=device),
+        "tokenized_prompt_mask": torch.arange(200, device=device)[None, :] < lengths[:, None],
+    })
+    return obs, torch.randn(batch, 50, 32, generator=gen, device=device)
+
+
+def _on(device, obs, actions, draws):
+    from kai0_tpu_torch.models.model import Observation
+
+    def to(x):
+        return {k: to(v) for k, v in x.items()} if isinstance(x, dict) else x.to(device)
+
+    moved = Observation(images=to(obs.images), image_masks=to(obs.image_masks), state=to(obs.state),
+                        tokenized_prompt=to(obs.tokenized_prompt), tokenized_prompt_mask=to(obs.tokenized_prompt_mask))
+    return moved, actions.to(device), {k: to(v) for k, v in draws.items()}
+
+
+def check_model_gradients() -> None:
+    """Phase 8: full-width, depth-2 f32 gradients on the card (kernels) against the host CPU (plain)."""
+    from kai0_tpu_torch.models import augment
+    from kai0_tpu_torch.models.model import IMAGE_KEYS
+    from kai0_tpu_torch.models.pi0 import Pi0, Pi0Config
+
+    @dataclasses.dataclass(frozen=True)
+    class CutDepth(Pi0Config):
+        depth: int = 2
+
+        @property
+        def paligemma_config(self):
+            return dataclasses.replace(super().paligemma_config, depth=self.depth)
+
+        @property
+        def action_expert_config(self):
+            return dataclasses.replace(super().action_expert_config, depth=self.depth)
+
+        @property
+        def vision_config(self):
+            return dataclasses.replace(super().vision_config, depth=self.depth)
+
+    config = CutDepth(pi05=True, dtype="float32")
+    model = Pi0(config, device="cuda", param_dtype=torch.float32).init_weights(
+        torch.Generator(device="cuda").manual_seed(8))
+    obs, actions = _train_batch(8, 2)
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    draws = {
+        "noise": torch.randn(actions.shape, generator=gen, device="cuda"),
+        "time": torch.rand(2, generator=gen, device="cuda"),
+        "augment_params": {k: augment.draw_augment_params(gen, 2, "wrist" not in k, device="cuda") for k in IMAGE_KEYS},
+    }
+
+    def grads(device):
+        o, a, d = _on(device, obs, actions, draws)
+        model.zero_grad(set_to_none=True)
+        t = time.perf_counter()
+        loss = model.compute_loss(o, a, train=True, **d).mean()
+        loss.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out = {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu() for k, p in model.named_parameters()}
+        return loss.item(), out, (time.perf_counter() - t) * 1000
+
+    _reset_launches()
+    card_loss, card, card_ms = grads("cuda")
+    launches = _read_launches()
+    _check(all(launches[k] > 0 for k in ("flash_mha", "flash_mha_bwd", "flash_mhsa", "flash_mhsa_bwd")),
+           f"depth-2 gradients did not go through the kernels: {launches}")
+    groups = {
+        "SigLIP": "paligemma_with_expert.paligemma.model.vision_tower.",
+        "Gemma-2B": "paligemma_with_expert.paligemma.model.language_model.",
+        "action expert": "paligemma_with_expert.gemma_expert.",
+        "projections": ("paligemma_with_expert.paligemma.model.multi_modal_projector.", "action_in_proj.",
+                        "action_out_proj.", "time_mlp_in.", "time_mlp_out."),
+    }
+    for group, prefix in groups.items():
+        gmax = max(g.abs().max().item() for k, g in card.items() if k.startswith(prefix))
+        _check(gmax > 0, f"{group}: zero gradient on the card")
+    for k in ("paligemma_with_expert.paligemma.model.vision_tower.vision_model.encoder.layers.0.self_attn.q_proj.weight",
+              "paligemma_with_expert.paligemma.model.language_model.layers.0.self_attn.q_proj.weight",
+              "paligemma_with_expert.gemma_expert.model.layers.0.self_attn.q_proj.weight"):
+        _check(card[k].abs().max().item() > 0, f"{k}: zero gradient before the attention on the card")
+
+    model.to("cpu")
+    torch.cuda.empty_cache()
+    host_loss, host, host_ms = grads("cpu")
+    worst, worst_key = 0.0, None
+    floor = 1e-6 * max(g.abs().max().item() for g in host.values())  # SigLIP's key bias: zero up to rounding
+    for k, g in host.items():
+        scale = max(g.abs().max().item(), floor)
+        err = (card[k] - g).abs().max().item()
+        _check(err <= MODEL_GRAD_TOL * scale, f"{k}: card vs host gradient error {err} > {MODEL_GRAD_TOL} x {scale}")
+        if scale > 0 and err / scale > worst:
+            worst, worst_key = err / scale, k
+    print(f"model gradients, full width, depth 2, f32, batch 2: loss card {card_loss:.6f} host {host_loss:.6f}; "
+          f"worst gradient error {worst:.3e} x max |grad| ({worst_key}); {len(host)} tensors; "
+          f"launches {launches}; card {card_ms:.1f} ms, host {host_ms:.1f} ms")
+    del model
+
+
+def _reset_launches():
+    from kai0_tpu_torch.ops import adam_q8
+    from kai0_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    adam_q8.reset_launches()
+
+
+def _read_launches() -> dict:
+    from kai0_tpu_torch.ops import adam_q8
+    from kai0_tpu_torch.ops import flash_attention as fa
+
+    return {**fa.LAUNCHES, **adam_q8.LAUNCHES}
+
+
+def _profile_families(prof) -> tuple[dict, float]:
+    """Device ms of one profiled step by kernel family, and the summed device ms."""
+    families = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name
+        if "flash_bwd" in name:
+            fam = "attention backward (K1b, K2b)"
+        elif "flash_fwd" in name:
+            fam = "attention forward (K1f, K2f)"
+        elif "adam_q8" in name:
+            fam = "8-bit AdamW (K3)"
+        elif any(s in name.lower() for s in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
+            fam = "matmuls (cuBLAS)"
+        elif "memcpy" in name.lower() or "memset" in name.lower():
+            fam = "copies and fills"
+        else:
+            fam = "elementwise / reductions / other"
+        ms, count = families.get(fam, (0.0, 0))
+        families[fam] = (ms + e.time_range.elapsed_us() / 1000, count + 1)
+    return families, sum(ms for ms, _ in families.values())
+
+
+def train() -> tuple[dict, list]:
+    """Phase 9: the full fine-tune step at full width, twice from the same seed."""
+    from kai0_tpu_torch.models.pi0 import Pi0, Pi0Config
+    from kai0_tpu_torch.training import optimizer, train_lib
+
+    config = Pi0Config(pi05=True)
+    train_config = train_lib.TrainConfig(
+        optimizer=optimizer.AdamW(state_dtype="int8"), param_dtype="bfloat16", ema_decay=None,
+    )
+    t0 = time.perf_counter()
+    model = Pi0(config, device="cuda", param_dtype=torch.bfloat16)
+    batches = [_train_batch(100 + i, TRAIN_BATCH) for i in range(TRAIN_STEPS)]
+    print(f"training: pi05 full fine-tune, batch {TRAIN_BATCH}, bf16 params (stochastic rounding), int8 AdamW "
+          f"moments, no EMA, per-block recompute, augmentation on, cosine schedule")
+    runs, run_launches = [], None
+    for run in range(2):
+        model.init_weights(torch.Generator(device="cuda").manual_seed(9))
+        state = train_lib.init_train_state(model, train_config)
+        n_tensors = len(state.params)
+        if run == 0:
+            print(f"  state: {sum(p.numel() for p in state.params.values()) / 1e9:.3f}B params in {n_tensors} tensors, "
+                  f"set up in {time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+        losses, walls = [], []
+        _reset_launches()
+        for step, batch in enumerate(batches):
+            profile = run == 1 and step == TRAIN_STEPS - 1
+            before = _read_launches()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if profile:
+                with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+                ) as prof:
+                    state, info = train_lib.train_step(model, state, batch, train_config)
+                    torch.cuda.synchronize()
+            else:
+                state, info = train_lib.train_step(model, state, batch, train_config)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1000
+            loss, grad_norm = float(info["loss"]), float(info["grad_norm"])
+            launches = {k: v - before[k] for k, v in _read_launches().items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"  run {run} step {step}{' (profiled)' if profile else ''}: wall_ms={wall_ms:.2f} "
+                  f"samples_per_s={TRAIN_BATCH / wall_ms * 1000:.3f} "
+                  f"model_mfu={MODEL_FLOPS_PER_SAMPLE * TRAIN_BATCH / (wall_ms / 1000) / PEAK_FLOPS[torch.bfloat16]:.4f} "
+                  f"loss={loss:.6f} grad_norm={grad_norm:.6f} "
+                  f"peak_mem_gib={peak:.3f} launches={launches}")
+            _check(np.isfinite(loss) and np.isfinite(grad_norm) and grad_norm > 0, f"step {step}: loss {loss}, norm {grad_norm}")
+            want = {"flash_mha": 36, "flash_mha_bwd": 18, "flash_mhsa": 54, "flash_mhsa_bwd": 27, "adam_q8": n_tensors}
+            _check(launches == want, f"step {step}: launches {launches}, want {want}")
+            if step == 0:
+                # Every tensor but the 7 the loss cannot reach (Gemma-2B's last layer past its K/V, its final norm).
+                moved = [sum(bool(m["q"].any()) for m in state.opt_state[key].values()) for key in ("mu", "nu")]
+                print(f"  int8 moments non-zero after step 1: mu {moved[0]}, nu {moved[1]} of {n_tensors} tensors")
+                _check(min(moved) >= n_tensors - 7, f"int8 moments still zero after step 1: {moved} of {n_tensors}")
+            losses.append(loss)
+            if not profile:
+                walls.append(wall_ms)
+        if run == 0:
+            run_launches = _read_launches()
+            print(f"  run 0: median wall_ms over steps 1-{TRAIN_STEPS - 1} = {statistics.median(walls[1:]):.2f} "
+                  f"({TRAIN_BATCH / statistics.median(walls[1:]) * 1000:.3f} samples/s); launches over "
+                  f"{TRAIN_STEPS} steps {run_launches}")
+        runs.append(losses)
+        del state
+        torch.cuda.empty_cache()
+    _check(runs[0] == runs[1], f"two runs from the same seed differ: {runs}")
+    families, busy_ms = _profile_families(prof)
+    print(f"  profiled step: summed device time {busy_ms:.2f} ms; by kernel family:")
+    for fam, (ms, count) in sorted(families.items(), key=lambda kv: -kv[1][0]):
+        print(f"    {fam}: {ms:.2f} ms, {count} kernels")
+    return run_launches, runs[0]
 
 
 def main() -> int:
@@ -238,21 +694,30 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
-    record = check_kernels()
-    launches = serve()
+    check_kernels()
+    serve_launches = serve()
     full_width_reference()
+    record = check_attention_training()
+    record.update(check_adam_q8())
+    check_model_gradients()
+    launches, _ = train()
 
     sources = {
         "flash_mha": ("kai0_tpu_torch/ops/csrc/flash_mqa_fwd.cu", "kai0_tpu/ops/pallas_attention.py:109"),
+        "flash_mha_bwd": ("kai0_tpu_torch/ops/csrc/flash_mqa_bwd.cu", "kai0_tpu/ops/pallas_attention.py:224"),
         "flash_mhsa": ("kai0_tpu_torch/ops/csrc/flash_mhsa_fwd.cu", "kai0_tpu/ops/pallas_attention.py:419"),
+        "flash_mhsa_bwd": ("kai0_tpu_torch/ops/csrc/flash_mhsa_bwd.cu", "kai0_tpu/ops/pallas_attention.py:449"),
+        "adam_q8": ("kai0_tpu_torch/ops/csrc/adam_q8.cu", "kai0_tpu/ops/pallas_q8.py:119"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
-        _check(launches[name] > 0, f"{name} was not launched on the main path")
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], **record[name],
-        })
+        _check(launches[name] > 0, f"{name} was not launched on the training path")
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches[name], **record[name]}
+        if name in ("flash_mha", "flash_mhsa"):
+            _check(serve_launches[name] > 0, f"{name} was not launched on the serving path")
+            entry["launches_serving"] = serve_launches[name]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -11,6 +11,11 @@ the concatenated sequence.
 Numerics: RMSNorm variance in f32, eps 1e-6, ``x·(1+w)``; adaRMS modulation in
 the activation dtype with gated residuals; RoPE in f32 on q and k, then q scaled
 by ``head_dim**-0.5``; embedding scaled by √width; GeGLU with tanh gelu.
+
+With gradients on and ``remat=True`` (the JAX default policy ``nothing``,
+``gemma.py:327-384``), each block runs under ``torch.utils.checkpoint``: the
+backward recomputes the block from its inputs, so attention's forward kernel
+runs twice per layer and step. ``remat=False`` is JAX's ``none``.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import math
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from kai0_tpu_torch.ops import attention as _attention
 from kai0_tpu_torch.ops import masks as _masks
@@ -228,8 +234,14 @@ def apply(
     *,
     kv_cache: list[tuple[torch.Tensor, torch.Tensor]] | None = None,
     embed_dtype: torch.dtype = torch.bfloat16,
+    remat: bool = True,
+    return_kv_cache: bool = True,
 ):
-    """Run the layer stack. Returns (per-expert outputs, per-layer KV cache [(k, v)], each [B,S,K,H])."""
+    """Run the layer stack.
+
+    Returns (per-expert outputs, per-layer KV cache [(k, v)], each [B,S,K,H]);
+    the cache is None when ``return_kv_cache`` is False (training builds none).
+    """
     xs = [e.to(embed_dtype) if e is not None else None for e in embedded]
     if adarms_cond is None:
         adarms_cond = [None] * len(experts)
@@ -239,13 +251,22 @@ def apply(
     if any(e.config.depth != depth for e in experts):
         raise ValueError("experts must have the same depth")
 
+    def block(layers, xs, layer_cache):
+        xs, layer_kv = _block(layers, xs, layer_cache, positions, mask, adarms_cond)
+        return (xs, layer_kv) if return_kv_cache else (xs, None)
+
+    recompute = remat and torch.is_grad_enabled()
     new_cache = []
     for i in range(depth):
         layers = [e.layers[i] for e in experts]
-        xs, layer_kv = _block(layers, xs, None if kv_cache is None else kv_cache[i], positions, mask, adarms_cond)
+        layer_cache = None if kv_cache is None else kv_cache[i]
+        if recompute:
+            xs, layer_kv = checkpoint(block, layers, xs, layer_cache, use_reentrant=False)
+        else:
+            xs, layer_kv = block(layers, xs, layer_cache)
         new_cache.append(layer_kv)
 
     outs = []
     for expert, x, cond in zip(experts, xs, adarms_cond, strict=True):
         outs.append(None if x is None else rms_norm(expert.norm, x, cond)[0])
-    return outs, new_cache
+    return outs, (new_cache if return_kv_cache else None)

@@ -1,8 +1,9 @@
-"""Model inputs and the eval branch of observation preprocessing, PyTorch.
+"""Model inputs and observation preprocessing, PyTorch.
 
 Counterpart of ``kai0_tpu/models/model.py``: ``Observation`` with the
 nested-dict contract of ``from_dict`` (uint8 images mapped to [-1, 1]) and
-``preprocess_observation`` without training augmentation. Resizing is not
+``preprocess_observation`` with its train branch (augmentation, crop and
+rotation only where ``"wrist"`` is not in the camera key). Resizing is not
 ported: images must already be 224×224.
 """
 
@@ -11,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from kai0_tpu_torch.models import augment as _augment
 
 # The model always expects these images.
 IMAGE_KEYS = (
@@ -52,8 +55,19 @@ class Observation:
         )
 
 
-def preprocess_observation(observation: Observation) -> Observation:
-    """Check the images and default-fill missing image masks with True."""
+def preprocess_observation(
+    observation: Observation,
+    *,
+    train: bool = False,
+    augment_params: dict[str, dict[str, torch.Tensor]] | None = None,
+    generator: torch.Generator | None = None,
+) -> Observation:
+    """Check the images, augment them when ``train``, default-fill missing image masks with True.
+
+    In training each camera's parameters come from ``augment_params[key]`` when
+    given (see ``augment.draw_augment_params``), else they are drawn from
+    ``generator``, camera by camera in ``IMAGE_KEYS`` order.
+    """
     if not set(IMAGE_KEYS).issubset(observation.images):
         raise ValueError(f"images dict missing keys: expected {IMAGE_KEYS}, got {list(observation.images)}")
     batch_shape = observation.state.shape[:-1]
@@ -64,6 +78,14 @@ def preprocess_observation(observation: Observation) -> Observation:
             raise ValueError(
                 f"image {key} is {tuple(image.shape[1:3])}, the port needs {IMAGE_RESOLUTION} (resizing is not ported)"
             )
+        if train:
+            if augment_params is not None:
+                params = augment_params[key]
+            else:
+                params = _augment.draw_augment_params(
+                    generator, image.shape[0], "wrist" not in key, device=image.device
+                )
+            image = _augment.augment_image(image, params)
         out_images[key] = image
         if key in observation.image_masks:
             out_masks[key] = torch.as_tensor(observation.image_masks[key], device=image.device)

@@ -1,16 +1,18 @@
-"""π₀.₅ flow-matching VLA, serving path, PyTorch.
+"""π₀.₅ flow-matching VLA, PyTorch: the training loss and the sampler.
 
-Counterpart of ``kai0_tpu/models/pi0.py``: the prefix (SigLIP tokens for each
-camera + prompt tokens, bidirectional) runs once through the PaliGemma expert
-and leaves a per-layer KV cache; then ``num_steps`` Euler steps from t=1 to 0
-run the action expert (adaRMS time conditioning) against that cache.
+Counterpart of ``kai0_tpu/models/pi0.py``. Serving: the prefix (SigLIP tokens
+for each camera + prompt tokens, bidirectional) runs once through the
+PaliGemma expert and leaves a per-layer KV cache; then ``num_steps`` Euler
+steps from t=1 to 0 run the action expert (adaRMS time conditioning) against
+that cache. Training: ``compute_loss`` runs prefix and suffix jointly through
+both experts and returns the flow-matching velocity MSE.
 
 Parameters follow the ``PI0Pytorch`` state-dict layout
 (``paligemma_with_expert.paligemma.model.language_model...``,
 ``paligemma_with_expert.gemma_expert.model...``, ``action_in_proj`` ...), so the
 output of ``kai0_tpu.interop.torch_safetensors.jax_to_torch_state`` loads with
-``strict=True``. Only π₀.₅ (``pi05=True``) is ported; ``compute_loss`` and the
-π₀ state-token suffix are not.
+``strict=True``. Only π₀.₅ (``pi05=True``) is ported; the π₀ state-token
+suffix is not. The model is built on the card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -84,7 +86,7 @@ def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
 
 
 class Pi0(nn.Module):
-    def __init__(self, config: Pi0Config, *, device=None, param_dtype: torch.dtype = torch.float32):
+    def __init__(self, config: Pi0Config, *, device="cuda", param_dtype: torch.dtype = torch.float32):
         super().__init__()
         if not config.pi05:
             raise NotImplementedError("only the π₀.₅ model (pi05=True) is ported")
@@ -152,7 +154,7 @@ class Pi0(nn.Module):
 
     # -- embedding ---------------------------------------------------------------------
 
-    def embed_prefix(self, obs: _model.Observation):
+    def embed_prefix(self, obs: _model.Observation, *, remat: bool = True):
         """Images + prompt -> (tokens [B, P, D0], input_mask bool[B, P], ar_mask bool[P]).
 
         All cameras go through SigLIP in one batched call.
@@ -164,6 +166,7 @@ class Pi0(nn.Module):
             self._pg.vision_tower.vision_model,
             self._pg.multi_modal_projector.linear,
             images.reshape(c * b, *images.shape[2:]),
+            remat=remat,
         )
         image_tokens = image_tokens.reshape(c, b, *image_tokens.shape[1:])
         tokens_per_image = image_tokens.shape[2]
@@ -192,6 +195,62 @@ class Pi0(nn.Module):
         input_mask = torch.ones(action_tokens.shape[:2], dtype=torch.bool, device=action_tokens.device)
         ar_mask = torch.tensor([True] + [False] * (horizon - 1), dtype=torch.bool, device=action_tokens.device)
         return action_tokens, input_mask, ar_mask, time_emb
+
+    # -- training ----------------------------------------------------------------------
+
+    def compute_loss(
+        self,
+        observation: _model.Observation,
+        actions: torch.Tensor,
+        *,
+        train: bool = False,
+        noise: torch.Tensor | None = None,
+        time: torch.Tensor | None = None,
+        augment_params: dict | None = None,
+        generator: torch.Generator | None = None,
+        remat: bool = True,
+    ) -> torch.Tensor:
+        """Flow-matching velocity MSE per (batch, action step), f32 [B, H] (``pi0.py:269-298``).
+
+        time ~ Beta(1.5, 1)·0.999 + 0.001, x_t = t·noise + (1−t)·actions,
+        u_t = noise − actions; prefix and suffix run jointly through both
+        experts with positions ``cumsum(input_mask) − 1``, and the f32
+        ``action_out_proj`` head reads the last ``action_horizon`` tokens.
+        ``noise``, ``time`` and ``augment_params`` override draws from
+        ``generator`` (augmentation, then noise, then time).
+        """
+        observation = _model.preprocess_observation(
+            observation, train=train, augment_params=augment_params, generator=generator
+        )
+        actions = actions.float()
+        if noise is None:
+            noise = torch.randn(actions.shape, generator=generator, device=actions.device)
+        if time is None:
+            # Beta(1.5, 1) has CDF x^1.5: invert it on a uniform draw.
+            u = torch.rand(actions.shape[0], generator=generator, device=actions.device)
+            time = u ** (1 / 1.5) * 0.999 + 0.001
+        t = time[:, None, None]
+        x_t = t * noise + (1 - t) * actions
+        u_t = noise - actions
+
+        prefix_tokens, prefix_mask, prefix_ar_mask = self.embed_prefix(observation, remat=remat)
+        suffix_tokens, suffix_mask, suffix_ar_mask, adarms_cond = self.embed_suffix(observation, x_t, time)
+        input_mask = torch.cat([prefix_mask, suffix_mask], dim=1)
+        ar_mask = torch.cat([prefix_ar_mask, suffix_ar_mask], dim=0)
+        attn_mask = make_attn_mask(input_mask, ar_mask)
+        positions = torch.cumsum(input_mask.to(torch.int32), dim=1) - 1
+        (_, suffix_out), _ = _gemma.apply(
+            self.experts,
+            [prefix_tokens, suffix_tokens],
+            positions,
+            attn_mask,
+            [None, adarms_cond],
+            embed_dtype=self.config.torch_dtype,
+            remat=remat,
+            return_kv_cache=False,
+        )
+        v_t = _linear(suffix_out[:, -self.config.action_horizon :].float(), self.action_out_proj)
+        return torch.mean(torch.square(v_t - u_t), dim=-1)
 
     # -- sampling ----------------------------------------------------------------------
 

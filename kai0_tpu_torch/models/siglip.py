@@ -10,6 +10,8 @@ outside the tower.
 Numerics: patch embedding and posemb in f32 (an im2col matmul, so no TF32
 convolution on the card); encoder body in the model dtype; LayerNorm upcasts to
 f32 with eps 1e-6; MLP gelu is the tanh approximation (``jax.nn.gelu``'s default).
+With gradients on and ``remat=True`` each encoder block runs under
+``torch.utils.checkpoint`` (JAX's default ``nothing`` policy).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import math
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from kai0_tpu_torch.ops import attention as _attention
 
@@ -146,7 +149,7 @@ class VisionModel(nn.Module):
         self.post_layernorm = nn.LayerNorm(config.width, eps=1e-6, **factory)
 
 
-def apply(model: VisionModel, head: nn.Linear | None, image: torch.Tensor) -> torch.Tensor:
+def apply(model: VisionModel, head: nn.Linear | None, image: torch.Tensor, *, remat: bool = True) -> torch.Tensor:
     """Encode ``[B, H, W, 3]`` images in [-1, 1] to patch tokens ``[B, N, num_classes]``."""
     config = model.config
     image = image.float()
@@ -161,8 +164,9 @@ def apply(model: VisionModel, head: nn.Linear | None, image: torch.Tensor) -> to
     x = x + model.embeddings.position_embedding.weight.float()
 
     x = x.to(getattr(torch, config.dtype_mm))
+    recompute = remat and torch.is_grad_enabled()
     for layer in model.encoder.layers:
-        x = layer(x)
+        x = checkpoint(layer, x, use_reentrant=False) if recompute else layer(x)
     x = _layer_norm(model.post_layernorm, x)
     if head is not None:
         x = _linear(x, head)

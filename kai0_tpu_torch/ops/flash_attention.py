@@ -1,16 +1,23 @@
-"""Fused attention forward kernels and their plain PyTorch versions.
+"""Fused attention kernels (forward and backward) and their plain PyTorch versions.
 
 Counterpart of ``kai0_tpu/ops/pallas_attention.py``:
 
 - ``flash_mha``: masked multi-query attention for the Gemma experts, q [B,T,N,H],
   one K/V head k/v [B,S,1,H], bool mask [B,T,S] or [B,1,T,S]
-  (CUDA kernel ``csrc/flash_mqa_fwd.cu``, head_dim 256);
+  (CUDA kernels ``csrc/flash_mqa_fwd.cu`` and ``csrc/flash_mqa_bwd.cu``,
+  head_dim 256);
 - ``flash_mhsa``: dense head-major attention for SigLIP, q/k/v [B,N,T,H], q
-  pre-scaled (CUDA kernel ``csrc/flash_mhsa_fwd.cu``, head_dim 72).
+  pre-scaled (CUDA kernels ``csrc/flash_mhsa_fwd.cu`` and
+  ``csrc/flash_mhsa_bwd.cu``, head_dim 72).
 
-A tensor on the CPU goes to the plain version (``flash_mha_plain``,
-``flash_mhsa_plain``); a CUDA tensor goes to the kernel, and the wrapper raises
-on anything the kernel does not take. ``LAUNCHES`` counts kernel launches per
+On CUDA tensors both go through a ``torch.autograd.Function`` (``FlashMHA``,
+``FlashMHSA``, the counterpart of the custom VJPs at ``pallas_attention.py:
+290-328,484-508``): the forward kernel saves (q, k, v, mask, out, lse) and the
+backward kernel recomputes P from the lse. A tensor on the CPU goes to the
+plain version (``flash_mha_plain``, ``flash_mhsa_plain``) and autograd through
+it; a CUDA tensor goes to the kernels, and the wrappers raise on anything the
+kernels do not take. ``flash_mha_bwd_plain`` / ``flash_mhsa_bwd_plain`` are the
+backward kernels' plain versions. ``LAUNCHES`` counts kernel launches per
 wrapper (plain calls are not counted).
 """
 
@@ -23,7 +30,7 @@ from kai0_tpu_torch.ops import _build
 BIG_NEG = -2.3819763e38  # Gemma's masking constant
 
 # Kernel launches per wrapper since the last ``reset_launches()``.
-LAUNCHES = {"flash_mha": 0, "flash_mhsa": 0}
+LAUNCHES = {"flash_mha": 0, "flash_mhsa": 0, "flash_mha_bwd": 0, "flash_mhsa_bwd": 0}
 
 _KEYS_PER_TILE = 64  # kKeys in csrc/flash_fwd.cuh
 _ROWS_PER_BLOCK = 64  # kRows
@@ -66,6 +73,22 @@ def flash_mhsa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     return torch.einsum("bnts,bnsh->bnth", probs, v)
 
 
+def _autograd_vjp(fn, inputs: tuple[torch.Tensor, ...], dout: torch.Tensor, *args) -> tuple[torch.Tensor, ...]:
+    with torch.enable_grad():
+        leaves = tuple(x.detach().requires_grad_() for x in inputs)
+        return torch.autograd.grad(fn(*leaves, *args), leaves, dout)
+
+
+def flash_mha_bwd_plain(q, k, v, mask, dout) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) by autograd through ``flash_mha_plain``: the backward kernel's plain version."""
+    return _autograd_vjp(flash_mha_plain, (q, k, v), dout, mask)
+
+
+def flash_mhsa_bwd_plain(q, k, v, dout) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) by autograd through ``flash_mhsa_plain``."""
+    return _autograd_vjp(flash_mhsa_plain, (q, k, v), dout)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -104,10 +127,8 @@ def _workspace(splits: int, rows: int, h: int, device) -> tuple[torch.Tensor, to
     )
 
 
-def flash_mha_fwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the MQA kernel: returns (out [B,T,N,H], lse f32 [B, T*N], rows t-major)."""
+def _mqa_mask(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Check the MQA kernels' inputs; return the mask as a contiguous bool [B,T,S]."""
     _check_inputs(q, k, v)
     b, t, n, h = q.shape
     s = k.shape[1]
@@ -118,7 +139,16 @@ def flash_mha_fwd(
         mask = mask[:, 0]
     _require(mask.shape == (b, t, s), f"mask shape {tuple(mask.shape)} (need [{b},{t},{s}])")
     _require(mask.dtype == torch.bool and mask.device == q.device and mask.is_contiguous(), "mask must be a contiguous bool CUDA tensor")
+    return mask
 
+
+def flash_mha_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the MQA kernel: returns (out [B,T,N,H], lse f32 [B, T*N], rows t-major)."""
+    b, t, n, h = q.shape
+    s = k.shape[1]
+    mask = _mqa_mask(q, k, v, mask)
     rows = b * t * n
     splits, chunk = _splits(b * -(-t * n // _ROWS_PER_BLOCK), s, q.device)
     out = torch.empty_like(q)
@@ -136,21 +166,62 @@ def flash_mha_fwd(
     return out, lse
 
 
+def flash_mha_bwd(q, k, v, mask, out, lse, dout) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the MQA backward kernel: returns (dq [B,T,N,H], dk, dv [B,S,1,H]) in the inputs' dtype."""
+    b, t, n, h = q.shape
+    s = k.shape[1]
+    mask = _mqa_mask(q, k, v, mask)
+    _check_inputs(q, out, dout)
+    _require(out.shape == q.shape and dout.shape == q.shape, "out/dout must have q's shape")
+    _require(lse.shape == (b, t * n) and lse.dtype == torch.float32 and lse.is_contiguous(), "lse must be f32 [B, T*N]")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, t * n), dtype=torch.float32, device=q.device)
+    err = _build.load().kai0_flash_mqa_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.view(torch.uint8).data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, t, s, n, h, int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_mqa_bwd launch failed: cudaError_t {err}")
+    LAUNCHES["flash_mha_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashMHA(torch.autograd.Function):
+    """MQA attention on the card: forward kernel K1f, backward kernel K1b."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        out, lse = flash_mha_fwd(q, k, v, mask)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_mha_bwd(q, k, v, mask, out, lse, dout.contiguous())
+        return dq, dk, dv, None
+
+
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked MQA attention, q [B,T,N,H] (RoPE'd + scaled), k/v [B,S,1,H] -> [B,T,N,H]."""
     if q.device.type == "cpu":
         return flash_mha_plain(q, k, v, mask)
-    return flash_mha_fwd(q, k, v, mask)[0]
+    return FlashMHA.apply(q, k, v, mask)
+
+
+def _mhsa_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    _check_inputs(q, k, v)
+    b, n, t, h = q.shape
+    _require(h == _MHSA_HEAD_DIM, f"head_dim {h} (kernel built for {_MHSA_HEAD_DIM})")
+    _require(k.shape == (b, n, k.shape[2], h) and v.shape == k.shape, f"k/v shape {tuple(k.shape)}")
 
 
 def flash_mhsa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the dense MHA kernel: returns (out [B,N,T,H], lse f32 [B,N,T])."""
-    _check_inputs(q, k, v)
+    _mhsa_check(q, k, v)
     b, n, t, h = q.shape
     s = k.shape[2]
-    _require(h == _MHSA_HEAD_DIM, f"head_dim {h} (kernel built for {_MHSA_HEAD_DIM})")
-    _require(k.shape == (b, n, s, h) and v.shape == k.shape, f"k/v shape {tuple(k.shape)}")
-
     rows = b * n * t
     splits, chunk = _splits(b * n * -(-t // _ROWS_PER_BLOCK), s, q.device)
     out = torch.empty_like(q)
@@ -168,8 +239,44 @@ def flash_mhsa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[t
     return out, lse
 
 
+def flash_mhsa_bwd(q, k, v, out, lse, dout) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the dense MHA backward kernel: returns (dq, dk, dv), each [B,N,T,H] in the inputs' dtype."""
+    _mhsa_check(q, k, v)
+    _check_inputs(q, out, dout)
+    b, n, t, h = q.shape
+    s = k.shape[2]
+    _require(out.shape == q.shape and dout.shape == q.shape, "out/dout must have q's shape")
+    _require(lse.shape == (b, n, t) and lse.dtype == torch.float32 and lse.is_contiguous(), "lse must be f32 [B, N, T]")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, n, t), dtype=torch.float32, device=q.device)
+    err = _build.load().kai0_flash_mhsa_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b * n, t, s, h, int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_mhsa_bwd launch failed: cudaError_t {err}")
+    LAUNCHES["flash_mhsa_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashMHSA(torch.autograd.Function):
+    """Dense head-major MHA on the card: forward kernel K2f, backward kernel K2b."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_mhsa_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return flash_mhsa_bwd(q, k, v, out, lse, dout.contiguous())
+
+
 def flash_mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Dense (unmasked) MHA, head-major [B,N,T,H], q pre-scaled -> [B,N,T,H]."""
     if q.device.type == "cpu":
         return flash_mhsa_plain(q, k, v)
-    return flash_mhsa_fwd(q, k, v)[0]
+    return FlashMHSA.apply(q, k, v)

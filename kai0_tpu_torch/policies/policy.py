@@ -44,7 +44,7 @@ class Policy:
         model,
         config,
         *,
-        device: torch.device | str,
+        device: torch.device | str = "cuda",
         generator: torch.Generator | None = None,
         transforms: Sequence[Transform] = (),
         output_transforms: Sequence[Transform] = (),

@@ -67,7 +67,7 @@ def test_flash_mha_plain_4d_mask_and_dispatch():
     ref = fa.flash_mha_plain(q, k, v, mask)
     torch.testing.assert_close(torch_attention.mha(q, k, v, mask[:, None]), ref, rtol=0, atol=0)
     torch.testing.assert_close(torch_attention.mha_reference(q, k, v, mask), ref, rtol=0, atol=0)
-    assert fa.LAUNCHES == {"flash_mha": 0, "flash_mhsa": 0}  # CPU tensors never reach a kernel
+    assert set(fa.LAUNCHES.values()) == {0}  # CPU tensors never reach a kernel, forward or backward
 
 
 def test_flash_mha_plain_bf16_matches_jax_reference():

@@ -1,4 +1,4 @@
-"""The CUDA attention kernels of kai0_tpu_torch against their plain PyTorch versions.
+"""The CUDA kernels of kai0_tpu_torch against their plain PyTorch versions.
 
 This file imports no JAX, so that the card's machine (which has none) can run it
 without the repository's conftest:
@@ -6,9 +6,13 @@ without the repository's conftest:
     python -m pytest tests/test_torch_flash_cuda.py -m cuda --noconftest -q
 
 The ``cuda`` tests skip where no card is present. Tolerances, with unit-normal
-inputs and q scaled by head_dim**-0.5: max abs 1e-4 in f32 (summation order);
-in bf16 max abs 2e-2 and mean abs 2e-3 (the kernel rounds the unnormalised
-softmax weights to bf16, the plain version the normalised probabilities).
+inputs and q scaled by head_dim**-0.5: forward, max abs 1e-4 in f32 (summation
+order); in bf16 max abs 2e-2 and mean abs 2e-3 (the kernel rounds the
+unnormalised softmax weights to bf16, the plain version the normalised
+probabilities). Backward, against autograd through the plain version: max abs
+<= 1e-4 x max |grad| in f32 and <= 2e-2 x max |grad| in bf16, per gradient.
+K3 in deterministic mode: scales equal, codes within 1 on at most 1e-5 of the
+elements, update within 1e-6 relative.
 """
 
 import pathlib
@@ -17,6 +21,8 @@ import pytest
 import torch
 
 from kai0_tpu_torch.ops import _build
+from kai0_tpu_torch.ops import adam_q8 as q8
+from kai0_tpu_torch.ops import attention
 from kai0_tpu_torch.ops import flash_attention as fa
 from kai0_tpu_torch.ops.masks import make_attn_mask
 
@@ -120,6 +126,104 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fa.flash_mha(q, k, k, mask.float())
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_mhsa(*(torch.randn(1, 2, 64, 64, device=cuda) for _ in range(3)))
+
+
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _assert_grads_close(got, want, dtype):
+    for name, a, b in zip("qkv", got, want, strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        assert scale > 0 and err <= GRAD_TOL[dtype] * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,s", [(2, 37, 131), (1, 130, 65), (1, 968, 968)])
+def test_flash_mha_bwd_matches_autograd_of_plain(cuda, dtype, b, t, s):
+    """Ragged tiles, random masks with fully masked rows, and a dO that is non-zero on those rows."""
+    g = torch.Generator(device=cuda).manual_seed(b * t + s)
+    q = (torch.randn(b, t, 8, 256, generator=g, device=cuda) / 16).to(dtype)
+    k, v = (torch.randn(b, s, 1, 256, generator=g, device=cuda).to(dtype) for _ in range(2))
+    mask = _serving_mask(t, s, cuda) if t == s == 968 else torch.rand(b, t, s, generator=g, device=cuda) < 0.5
+    if t != 968:
+        mask[:, ::3] = False
+    dout = torch.randn(b, t, 8, 256, generator=g, device=cuda).to(dtype)
+    out, lse = fa.flash_mha_fwd(q, k, v, mask)
+    before = fa.LAUNCHES["flash_mha_bwd"]
+    got = fa.flash_mha_bwd(q, k, v, mask, out, lse, dout)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_mha_bwd"] == before + 1
+    _assert_grads_close(got, fa.flash_mha_bwd_plain(q, k, v, mask, dout), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 16, 256, 72), (1, 2, 37, 72)])
+def test_flash_mhsa_bwd_matches_autograd_of_plain(cuda, dtype, shape):
+    g = torch.Generator(device=cuda).manual_seed(shape[2])
+    q = (torch.randn(shape, generator=g, device=cuda) / 72**0.5).to(dtype)
+    k, v, dout = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(3))
+    out, lse = fa.flash_mhsa_fwd(q, k, v)
+    got = fa.flash_mhsa_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, fa.flash_mhsa_bwd_plain(q, k, v, dout), dtype)
+
+
+@pytest.mark.cuda
+def test_attention_on_the_card_passes_gradients(cuda):
+    """A loss through ``mha`` / ``mhsa_dense_hm`` on CUDA reaches q, k and v, through the backward kernels."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = (torch.randn(1, 40, 8, 256, generator=g, device=cuda) / 16).requires_grad_()
+    k, v = (torch.randn(1, 40, 1, 256, generator=g, device=cuda).requires_grad_() for _ in range(2))
+    mask = make_attn_mask(torch.ones(1, 40, dtype=torch.bool, device=cuda), torch.arange(40, device=cuda) == 20)
+    before = dict(fa.LAUNCHES)
+    attention.mha(q, k, v, mask).square().sum().backward()
+    qh, kh, vh = (torch.randn(1, 16, 64, 72, generator=g, device=cuda).requires_grad_() for _ in range(3))
+    attention.mhsa_dense_hm(qh, kh, vh).square().sum().backward()
+    torch.cuda.synchronize()
+    for x in (q, k, v, qh, kh, vh):
+        assert x.grad is not None and x.grad.abs().max().item() > 0
+    assert {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES} == {
+        "flash_mha": 1, "flash_mhsa": 1, "flash_mha_bwd": 1, "flash_mhsa_bwd": 1,
+    }
+
+
+def _q8_state(n_shape, device, gen):
+    """Moments after two plain steps of random gradients, so every code and scale is in use."""
+    mq = torch.zeros(n_shape, dtype=torch.int8, device=device)
+    vq = torch.zeros(n_shape, dtype=torch.uint8, device=device)
+    blocks = q8.num_blocks(mq.numel())
+    ms, vs = torch.zeros(blocks, device=device), torch.zeros(blocks, device=device)
+    for _ in range(2):
+        g = torch.randn(n_shape, generator=gen, device=device) * 1e-3
+        q8.adam_q8_leaf_plain(g, mq, ms, vq, vs, 1.0, 1e-8, 0, b1=0.9, b2=0.95, deterministic=True)
+    return mq, ms, vq, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 2048), (3, 1000)])
+def test_adam_q8_kernel_matches_plain(cuda, dtype, shape):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    state = _q8_state(shape, cuda, gen)
+    g = (torch.randn(shape, generator=gen, device=cuda) * 1e-3).to(dtype)
+    for deterministic in (True, False):
+        k_state = [x.clone() for x in state]
+        p_state = [x.clone() for x in state]
+        before = q8.LAUNCHES["adam_q8"]
+        out = q8.adam_q8_leaf(g, *k_state, 1.7, 2e-8, 12345, b1=0.9, b2=0.95, deterministic=deterministic)
+        ref = q8.adam_q8_leaf_plain(g, *p_state, 1.7, 2e-8, 12345, b1=0.9, b2=0.95, deterministic=deterministic)
+        torch.cuda.synchronize()
+        assert q8.LAUNCHES["adam_q8"] == before + 1
+        assert out.dtype == dtype and out.shape == g.shape
+        torch.testing.assert_close(out.float(), ref.float(), rtol=1e-6, atol=0)
+        for code_k, code_p in ((k_state[0], p_state[0]), (k_state[2], p_state[2])):
+            diff = (code_k.int() - code_p.int()).abs()
+            assert diff.max().item() <= 1 and (diff > 0).float().mean().item() <= 1e-5
+        assert torch.equal(k_state[1], p_state[1]) and torch.equal(k_state[3], p_state[3])
 
 
 def test_cpu_tensors_take_the_plain_path():

@@ -31,7 +31,7 @@ def test_strict_load_is_exact(jax_state, dtype):
     if dtype == "bfloat16":
         params = jax.tree.map(lambda x: x.astype(jnp.bfloat16), params)
     state = tsf.jax_to_torch_state(params, config)
-    model = torch_pi0.Pi0(torch_pi0.Pi0Config(**DEBUG), param_dtype=getattr(torch, dtype))
+    model = torch_pi0.Pi0(torch_pi0.Pi0Config(**DEBUG), device="cpu", param_dtype=getattr(torch, dtype))
 
     own = model.state_dict()
     assert set(own) == set(state)  # nothing missing, nothing unexpected
@@ -49,7 +49,7 @@ def test_strict_load_is_exact(jax_state, dtype):
 def test_strict_load_rejects_missing_and_unexpected_keys(jax_state):
     config, params = jax_state
     state = tsf.jax_to_torch_state(params, config)
-    model = torch_pi0.Pi0(torch_pi0.Pi0Config(**DEBUG))
+    model = torch_pi0.Pi0(torch_pi0.Pi0Config(**DEBUG), device="cpu")
     missing = dict(state)
     missing.pop("time_mlp_in.weight")
     with pytest.raises(RuntimeError, match="Missing key"):
@@ -59,7 +59,7 @@ def test_strict_load_rejects_missing_and_unexpected_keys(jax_state):
 
 
 def test_key_layout_matches_the_reference_names():
-    keys = set(torch_pi0.Pi0(torch_pi0.Pi0Config(**DEBUG)).state_dict())
+    keys = set(torch_pi0.Pi0(torch_pi0.Pi0Config(**DEBUG), device="cpu").state_dict())
     for key in (
         "paligemma_with_expert.paligemma.model.language_model.layers.0.self_attn.q_proj.weight",
         "paligemma_with_expert.paligemma.model.language_model.embed_tokens.weight",
@@ -74,4 +74,4 @@ def test_key_layout_matches_the_reference_names():
 
 def test_only_pi05_is_ported():
     with pytest.raises(NotImplementedError, match="pi05"):
-        torch_pi0.Pi0(torch_pi0.Pi0Config(**{**DEBUG, "pi05": False}))
+        torch_pi0.Pi0(torch_pi0.Pi0Config(**{**DEBUG, "pi05": False}), device="cpu")

@@ -107,8 +107,25 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'kai0_tpu' or m.startswith('kai0_tpu.'))\n"
         "assert 'kai0_tpu_torch.policies.policy' in sys.modules\n"
+        "assert 'kai0_tpu_torch.training.train_lib' in sys.modules\n"
         "print(bad)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+def test_chip_smoke_needs_a_card_and_imports_no_jax(tmp_path):
+    """``chip_smoke.py`` imports nothing of JAX, and without a card it fails and prints no result."""
+    import ast
+
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    imported = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    imported |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
+    assert not {m for m in imported if m.split(".")[0] in ("jax", "kai0_tpu")}, imported
+    assert any(m.startswith("kai0_tpu_torch.training") for m in imported)
+    if torch.cuda.is_available():
+        return
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout, (proc.returncode, proc.stdout)
