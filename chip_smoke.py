@@ -5,8 +5,8 @@
 Phases, none of which catches an error (any failure exits non-zero):
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
-2. Build every kernel from ``kai0_tpu_torch/ops/csrc`` with nvcc (one process
-   per source, all started together).
+2. Build all eight kernels from ``kai0_tpu_torch/ops/csrc`` with nvcc (one
+   process per source, all started together).
 3. Hold each forward kernel against its plain PyTorch version at the serving
    shapes, in f32 and bf16: the Gemma prefill (T=S=968: 3x256 image tokens with
    one camera masked + 200 prompt tokens, 150 of them padding), the denoise
@@ -21,7 +21,9 @@ Phases, none of which catches an error (any failure exits non-zero):
    (Gemma-2B + Gemma-300M, So400m/14, bf16, seeded random weights) at batch 1,
    counting kernel launches per request (27 flash_mhsa, 198 flash_mha), and
    check the actions: (50, 32) per request, finite, identical for identical
-   noise and different for other noise.
+   noise and different for other noise. The 5 requests are then served a
+   second time (same actions required), to show the spread of the host-bound
+   wall time within one run.
 5. Reference at full width: the same architecture in f32 samples one chunk on
    the card (kernels) and on the host CPU (plain versions) from the same
    weights and noise; the two must agree within 1e-3.
@@ -54,9 +56,54 @@ Phases, none of which catches an error (any failure exits non-zero):
    A second run from the same seed must give identical losses; its last step
    runs under torch.profiler for device time by kernel family.
 
-The line before the last is the kernels' JSON record (times in bf16 at the
-training shapes; ``launches`` from the first 5-step run); the last line is
-``{"ok": true, "device": {...}}``.
+10. The int8 kernels against their plain versions at the full-width shapes of
+    the int8 paths, every (K, N) of both experts (q, the joint kv, out,
+    gate/up, down of Gemma-2B and Gemma-300M) against M = 50 and 968 (int8
+    serving), 2 x 968 (phase 12) and the rows phase 13 launches at batch 32:
+    1,600 (the action expert), 7,744 (a row chunk of Gemma-2B's fused FFN) and,
+    at the attention sites, which are not chunked, 30,976.
+    K5 (``row_quant``; bf16 activations and the backward's f32 ``dy·s``) and
+    K4b (``int8_matmul``; the forward orientation with both scales, the
+    backward's orientation with the row scale only; bf16 and f32 outputs) are
+    held bit-equal. K4a (``int8_matmul_lora``; rank 16 or 32) sums its rank-r
+    term in another order than the plain version's library product: at most
+    1e-3 of the bf16 outputs differ, each by at most 2^-7 x max(|y|, |term|)
+    (one bf16 step of the term); f32 within 1e-5 x max |y|. Times beside the
+    bound (the larger of the int8 operations over 1,979 TOP/s and the bytes over
+    3.35 TB/s; bytes only for K5) and, for K4b and K4a, ``torch._int_mm``
+    followed by the scaling (and the separate LoRA add), a yardstick the port
+    never calls.
+11. int8 serving: the model of phase 4 with ``quantize_inference_tree`` applied
+    serves the same 5 requests; per request 990 ``row_quant`` and 1188
+    ``int8_matmul`` launches (18 layers x (1 prefill + 10 denoise steps) x 5
+    row quantizations and 6 products), none of ``int8_matmul_lora``. The actions
+    are compared with the bf16 model's on the same weights and noise, and the
+    difference printed (int8 perturbs the actions by design).
+12. The LoRA fine-tune over a frozen int8 base at full width, depth cut to 2,
+    f32 activations, batch 2, fixed draws: the card (kernels) against the host
+    CPU (plain versions) on the same codes. Card and host differ by f32
+    rounding, which flips an activation code now and then, so the loss is held
+    to 5e-4 and every trainable gradient (LoRA factors, SigLIP, projections) to
+    3e-2 x its max abs and 2e-2 in L2.
+13. The int8 main path: 5 steps of the LoRA fine-tune of π₀.₅ at full width
+    (``gemma_2b_lora`` rank 16 + ``gemma_300m_lora`` rank 32) over a frozen int8
+    base at batch 32: trainable leaves (LoRA factors, SigLIP, projections) in
+    f32 with bf16 AdamW moments, no EMA, per-block recompute, augmentation on,
+    the batches of phase 9. Per step: wall ms, samples/s, loss, grad_norm, peak
+    GiB and the launches of all kernels (asserted against the counts worked out
+    from the code). The frozen leaves, codes and scales must be bit-identical
+    after the steps and the optimizer state must cover the trainable leaves
+    only. A second run from the same seed must give identical losses; its last
+    step runs under torch.profiler.
+
+The line before the last is the kernels' JSON record: times in bf16, the
+attention kernels at phase 6's shapes (batch 2: the plain version's [B,8,T,S]
+f32 scores at batch 32 are what the kernels exist to avoid), the AdamW kernel
+at phase 7's, the int8 kernels at shapes phase 13 launches (K5 on a [7744,
+16384] bf16 chunk, K4a the gate/up product of that chunk, K4b its ``dx``);
+``launches`` from the first 5-step run of the path that runs the kernel: phase
+9 for the attention and AdamW kernels, phase 13 for the int8 ones. The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -79,9 +126,22 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FULL_WIDTH_TOL = 1e-3
 MODEL_GRAD_TOL = 1e-3
 Q8_BIAS_TOL = 3e-3
+LORA_FLIP_SHARE = 1e-3  # K4a: share of bf16 outputs that may differ from the plain version
+INT8_LOSS_TOL, INT8_GRAD_TOL, INT8_GRAD_L2_TOL = 5e-4, 3e-2, 2e-2  # card vs host with activation-code flips
+# Rows of the int8 kernels' operands: int8 serving and the depth-2 gradient check; then what the batch-32 LoRA step
+# launches (the action expert's 32 x 50 rows, a chunk of Gemma-2B's fused FFN, the unchunked attention sites).
+INT8_ROWS, INT8_CHUNK_ROWS, INT8_ATTENTION_ROWS = (50, 968, 2 * 968, TRAIN_BATCH * 50), TRAIN_BATCH * 968 // 4, TRAIN_BATCH * 968
+INT8_REQUEST_LAUNCHES = {"row_quant": 18 * 11 * 5, "int8_matmul": 18 * 11 * 6, "int8_matmul_lora": 0}
+# (K, N) of the quantized products of one layer: Gemma-2B, then the Gemma-300M action expert; LoRA rank.
+INT8_SITES = {
+    "gemma_2b": ({"q": (2048, 2048), "kv": (2048, 512), "out": (2048, 2048), "gate/up": (2048, 16384),
+                  "down": (16384, 2048)}, 16),
+    "gemma_300m": ({"q": (1024, 2048), "kv": (1024, 512), "out": (2048, 1024), "gate/up": (1024, 4096),
+                    "down": (4096, 1024)}, 32),
+}
 
 # NVIDIA's data-sheet peaks of the H100 SXM at 700 W (dense).
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 Q8_OPS_PER_ELEMENT = 40  # f32 operations of decode, recurrence, update, absmax and encode
 # Model FLOP of one π₀.₅ training sample, forward + backward without recompute
@@ -229,7 +289,8 @@ def _request_inputs(rng: np.random.Generator) -> dict:
     }
 
 
-def serve() -> dict:
+def serve():
+    """Phase 4; returns its launches and what phase 11 serves again in int8 (model, policy, inputs, actions)."""
     from kai0_tpu_torch.models.pi0 import Pi0, Pi0Config
     from kai0_tpu_torch.ops import flash_attention as fa
     from kai0_tpu_torch.policies.policy import Policy
@@ -265,21 +326,81 @@ def serve() -> dict:
               f"peak_mem_gib={peak_gib:.3f} launches={launches}")
         _check(launches == {"flash_mhsa": 27, "flash_mha": 18 + 10 * 18, "flash_mha_bwd": 0, "flash_mhsa_bwd": 0},
                f"request {i}: launches {launches}")
+        _check(not any(_int8_launches().values()), f"request {i}: the bf16 model launched int8 kernels")
         a = out["actions"]
         _check(a.shape == (50, 32) and a.dtype == np.float32, f"actions {a.shape} {a.dtype}")
         _check(np.isfinite(a).all(), "non-finite actions")
         actions.append(a)
         per_request.append(wall_ms)
     serve_launches = dict(fa.LAUNCHES)
+    again = []
+    for i, noise_idx in enumerate(plan):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = policy.infer(obs, noise=noises[noise_idx])
+        torch.cuda.synchronize()
+        again.append((time.perf_counter() - t) * 1000)
+        _check(np.array_equal(out["actions"], actions[i]), f"request {i} served again: different actions")
     for i in (1, 2, 3):
         _check(np.array_equal(actions[i], actions[0]), f"request {i}: same noise, different actions")
     _check(not np.array_equal(actions[4], actions[0]), "other noise gave the same actions")
     _check(np.abs(actions[0] - noises[0]).max() > 1e-2, "actions did not move from the noise")
     print(f"serving: median wall_ms={statistics.median(per_request[1:]):.2f} over requests 1-{REQUESTS - 1} "
-          f"{[round(x, 2) for x in per_request[1:]]} (request 0 includes first-use set-up)")
-    del policy, model
+          f"{[round(x, 2) for x in per_request[1:]]} (request 0 includes first-use set-up); the same requests again: "
+          f"median wall_ms={statistics.median(again[1:]):.2f} {[round(x, 2) for x in again]}")
+    return serve_launches, (model, policy, obs, noises, plan, actions)
+
+
+def _int8_launches() -> dict:
+    from kai0_tpu_torch.ops import int8_matmul, row_quant
+
+    return {**row_quant.LAUNCHES, **int8_matmul.LAUNCHES}
+
+
+def serve_int8(served) -> dict:
+    """Phase 11: the same model with its Gemma matmul weights quantized, the same requests."""
+    from kai0_tpu_torch.ops import quant
+
+    model, policy, obs, noises, plan, bf16_actions = served
+    t0 = time.perf_counter()
+    quant.quantize_inference_tree(model)
+    torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return serve_launches
+    holders = sum(quant.is_quant(m) for m in model.modules())
+    _check(holders == 2 * 18 * 6, f"{holders} quantized holders, want {2 * 18 * 6}")
+    print(f"int8 serving: {holders} int8 holders (q, kv, out, gate, up, down of both experts' 18 layers), quantized in "
+          f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    _reset_launches()
+    actions, per_request = [], []
+    for i, noise_idx in enumerate(plan):
+        before = _read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = policy.infer(obs, noise=noises[noise_idx])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1000
+        launches = {k: v - before[k] for k, v in _read_launches().items() if v - before[k]}
+        print(f"int8 request {i}: wall_ms={wall_ms:.2f} infer_ms={out['policy_timing']['infer_ms']:.2f} "
+              f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.3f} launches={launches}")
+        want = {"flash_mhsa": 27, "flash_mha": 18 + 10 * 18, **{k: v for k, v in INT8_REQUEST_LAUNCHES.items() if v}}
+        _check(launches == want, f"int8 request {i}: launches {launches}, want {want}")
+        a = out["actions"]
+        _check(a.shape == (50, 32) and a.dtype == np.float32 and np.isfinite(a).all(), "int8 actions")
+        actions.append(a)
+        per_request.append(wall_ms)
+    launches = _read_launches()
+    for i in (1, 2, 3):
+        _check(np.array_equal(actions[i], actions[0]), f"int8 request {i}: same noise, different actions")
+    _check(not np.array_equal(actions[4], actions[0]), "int8: other noise gave the same actions")
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(actions, bf16_actions, strict=True))
+    _check(0 < diff < 0.5 * float(np.abs(bf16_actions[0]).max()), f"int8 actions against bf16 actions: {diff}")
+    print(f"int8 serving: median wall_ms={statistics.median(per_request[1:]):.2f} over requests 1-{REQUESTS - 1} "
+          f"{[round(x, 2) for x in per_request[1:]]}; actions against the bf16 model's on the same weights and noise: "
+          f"max_abs_diff={diff:.4e} (|actions| max {np.abs(bf16_actions[0]).max():.3f})")
+    del served, policy, model
+    torch.cuda.empty_cache()
+    return launches
 
 
 def full_width_reference() -> None:
@@ -448,6 +569,119 @@ def check_adam_q8() -> dict:
                         "bound_by": bound_by, "library_ms": None}}
 
 
+def _int8_bound(m: int, n: int, k: int, nbytes: int, rank: int = 0) -> tuple[float, str]:
+    """Least ms for an int8 product [m, k] x [k, n] (plus a rank-``rank`` bf16 term) moving ``nbytes``."""
+    ops_s = 2 * m * n * k / PEAK_FLOPS[torch.int8] + 2 * m * n * rank / PEAK_FLOPS[torch.bfloat16]
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def check_int8_kernels() -> dict:
+    """Phase 10: K5, K4b (both orientations) and K4a against their plain versions at the int8 paths' shapes."""
+    from kai0_tpu_torch.ops import int8_matmul as mm
+    from kai0_tpu_torch.ops import quant
+    from kai0_tpu_torch.ops import row_quant as rq
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    bf16, f32 = torch.bfloat16, torch.float32
+    record = {}
+    _check(quant._row_chunks(INT8_ATTENTION_ROWS, 16384)[0] == (0, INT8_CHUNK_ROWS) and len(quant._row_chunks(INT8_ROWS[-1], 4096)) == 1,
+           "the fused FFN's row chunks at batch 32 are not the rows held here")
+
+    def tag(dtype):
+        return str(dtype)[6:]
+
+    # K5: bf16 activations at every contraction width, and the backward's f32 dy·s at every output width.
+    widths = {bf16: (1024, 2048, 4096, 16384), f32: (512, 1024, 2048, 4096, 16384)}
+    for dtype, ks in widths.items():
+        for m in (*INT8_ROWS, INT8_CHUNK_ROWS, INT8_ATTENTION_ROWS):
+            for k in ks:
+                if m == INT8_ATTENTION_ROWS and k > 2048:  # only the attention sites see all rows at once
+                    continue
+                x = (torch.randn(m, k, generator=gen, device="cuda") * 3).to(dtype)
+                x[1] = 0
+                xq, sx = rq.row_quant(x)
+                ref_q, ref_s = rq.row_quant_plain(x)
+                torch.cuda.synchronize()
+                _check(torch.equal(sx, ref_s) and torch.equal(xq, ref_q), f"row_quant [{m},{k}] {dtype}: not bit-equal")
+                _check(not xq[1].any() and xq.abs().max().item() == 127, f"row_quant [{m},{k}] {dtype}: codes")
+                ms, plain_ms = _cuda_ms(lambda: rq.row_quant(x), runs=10), _cuda_ms(lambda: rq.row_quant_plain(x), runs=10)
+                bound_ms = _nbytes(x, xq, sx) / HBM_BYTES_PER_S * 1e3
+                print(f"kernel row_quant [{m},{k}] {tag(dtype)}: bit-equal; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                      f"bound_ms={bound_ms:.4f} (bytes)")
+                if (dtype, m, k) == (bf16, INT8_CHUNK_ROWS, 16384):
+                    record["row_quant"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                           "bound_by": "bytes", "library_ms": None}
+
+    for expert, (sites, rank) in INT8_SITES.items():
+        for site, (k, n) in sites.items():
+            w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)  # as stored: [out, in]
+            sn = torch.rand(n, generator=gen, device="cuda") * 1e-3 + 1e-5
+            rows = (*INT8_ROWS, INT8_CHUNK_ROWS) + ((INT8_ATTENTION_ROWS,) if site in ("q", "kv", "out") else ())
+            for m in rows:
+                xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+                gq = torch.randint(-127, 128, (m, n), generator=gen, device="cuda", dtype=torch.int8)
+                sx = torch.rand(m, 1, generator=gen, device="cuda") * 1e-2 + 1e-4
+                # K4b forward (nt, both scales) and the backward's dx (the other orientation, row scale only)
+                cases = {
+                    "fwd": (lambda d: mm.int8_matmul(xq, w, sx, sn, nt=True, out_dtype=d),
+                            lambda d: mm.int8_matmul_plain(xq, w, sx, sn, nt=True, out_dtype=d),
+                            lambda d: (torch._int_mm(xq, w.T).to(f32) * sx * sn).to(d), (m, n, k), (xq, w, sx, sn)),
+                    "dx": (lambda d: mm.int8_matmul(gq, w, sx, None, nt=False, out_dtype=d),
+                           lambda d: mm.int8_matmul_plain(gq, w, sx, None, nt=False, out_dtype=d),
+                           lambda d: (torch._int_mm(gq, w).to(f32) * sx).to(d), (m, k, n), (gq, w, sx)),
+                }
+                for which, (kernel, plain, library, (mm_m, mm_n, mm_k), operands) in cases.items():
+                    for dtype in (bf16, f32):
+                        out, ref = kernel(dtype), plain(dtype)
+                        torch.cuda.synchronize()
+                        _check(out.dtype == dtype and torch.equal(out, ref),
+                               f"int8_matmul {expert} {site} {which} M={m} {dtype}: not bit-equal")
+                    out = kernel(bf16)
+                    _check(torch.equal(library(bf16), out), f"int8_matmul {expert} {site} {which} M={m}: library yardstick differs")
+                    ms, plain_ms, lib_ms = (_cuda_ms(lambda f=f: f(bf16), runs=10) for f in (kernel, plain, library))
+                    bound_ms, bound_by = _int8_bound(mm_m, mm_n, mm_k, _nbytes(*operands, out))
+                    print(f"kernel int8_matmul {expert} {site} {which} M={m} K={mm_k} N={mm_n}: bit-equal (bf16, f32); "
+                          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} int_mm_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+                          f"{2 * mm_m * mm_n * mm_k / ms / 1e9:.1f} TOP/s")
+                    if (expert, site, which, m) == ("gemma_2b", "gate/up", "dx", INT8_CHUNK_ROWS):
+                        record["int8_matmul"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                                 "bound_by": bound_by, "library_ms": lib_ms}
+                if site not in ("gate/up", "down"):
+                    continue
+                # K4a: the fused FFN's products with the rank-r term in the epilogue
+                for dtype in (bf16, f32):
+                    u = torch.randn(m, rank, generator=gen, device="cuda").to(dtype)
+                    b = (torch.randn(rank, n, generator=gen, device="cuda") * 0.05).to(dtype)
+                    kernel = lambda: mm.int8_matmul_lora(xq, w, sx, sn, u, b, out_dtype=dtype)  # noqa: E731
+                    plain = lambda: mm.int8_matmul_lora_plain(xq, w, sx, sn, u, b, out_dtype=dtype)  # noqa: E731
+                    library = lambda: (torch._int_mm(xq, w.T).to(f32) * sx * sn + (u @ b).to(f32)).to(dtype)  # noqa: E731
+                    out, ref = kernel(), plain()
+                    torch.cuda.synchronize()
+                    diff = (out.to(f32) - ref.to(f32)).abs()
+                    max_err, share = diff.max().item(), (diff > 0).to(f32).mean().item()
+                    if dtype == bf16:
+                        term = (u @ b).to(f32).abs()
+                        _check((diff <= 2.0**-7 * torch.maximum(ref.to(f32).abs(), term)).all() and share <= LORA_FLIP_SHARE,
+                               f"int8_matmul_lora {expert} {site} M={m} bf16: max err {max_err}, share {share}")
+                    else:
+                        _check(max_err <= 1e-5 * ref.abs().max().item(), f"int8_matmul_lora {expert} {site} M={m} f32: {max_err}")
+                    _check((out.to(f32) - mm.int8_matmul(xq, w, sx, sn, nt=True, out_dtype=dtype).to(f32)).abs().max().item() > 0.05,
+                           "int8_matmul_lora: the rank-r term is missing")
+                    if dtype == f32:
+                        print(f"kernel int8_matmul_lora {expert} {site} M={m} r={rank} f32: max_abs_err={max_err:.3e}")
+                        continue
+                    ms, plain_ms, lib_ms = (_cuda_ms(f, runs=10) for f in (kernel, plain, library))
+                    bound_ms, bound_by = _int8_bound(m, n, k, _nbytes(xq, w, sx, sn, u, b, out), rank)
+                    print(f"kernel int8_matmul_lora {expert} {site} M={m} K={k} N={n} r={rank} bf16: max_abs_err={max_err:.3e}, "
+                          f"share of outputs that differ {share:.3e}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                          f"int_mm_plus_lora_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) {2 * m * n * k / ms / 1e9:.1f} TOP/s")
+                    if (expert, site, m) == ("gemma_2b", "gate/up", INT8_CHUNK_ROWS):
+                        record["int8_matmul_lora"] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                                                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    return record
+
+
 def _train_batch(seed: int, batch: int, device="cuda"):
     """A seeded synthetic batch: 3 uint8 cameras (one masked in sample 0), a padded prompt, state, actions."""
     from kai0_tpu_torch.models.model import IMAGE_KEYS, Observation
@@ -476,49 +710,67 @@ def _on(device, obs, actions, draws):
     return moved, actions.to(device), {k: to(v) for k, v in draws.items()}
 
 
-def check_model_gradients() -> None:
-    """Phase 8: full-width, depth-2 f32 gradients on the card (kernels) against the host CPU (plain)."""
-    from kai0_tpu_torch.models import augment
-    from kai0_tpu_torch.models.model import IMAGE_KEYS
-    from kai0_tpu_torch.models.pi0 import Pi0, Pi0Config
+def _cut_depth_config(depth: int = 2, **kwargs):
+    """``Pi0Config`` at full width with both Gemma experts and SigLIP cut to ``depth`` layers."""
+    from kai0_tpu_torch.models.pi0 import Pi0Config
 
     @dataclasses.dataclass(frozen=True)
     class CutDepth(Pi0Config):
-        depth: int = 2
-
         @property
         def paligemma_config(self):
-            return dataclasses.replace(super().paligemma_config, depth=self.depth)
+            return dataclasses.replace(super().paligemma_config, depth=depth)
 
         @property
         def action_expert_config(self):
-            return dataclasses.replace(super().action_expert_config, depth=self.depth)
+            return dataclasses.replace(super().action_expert_config, depth=depth)
 
         @property
         def vision_config(self):
-            return dataclasses.replace(super().vision_config, depth=self.depth)
+            return dataclasses.replace(super().vision_config, depth=depth)
 
-    config = CutDepth(pi05=True, dtype="float32")
-    model = Pi0(config, device="cuda", param_dtype=torch.float32).init_weights(
-        torch.Generator(device="cuda").manual_seed(8))
-    obs, actions = _train_batch(8, 2)
-    gen = torch.Generator(device="cuda").manual_seed(80)
+    return CutDepth(**kwargs)
+
+
+def _gradient_inputs(seed: int, batch: int = 2):
+    """A seeded batch on the card with fixed noise, time and augmentation draws."""
+    from kai0_tpu_torch.models import augment
+    from kai0_tpu_torch.models.model import IMAGE_KEYS
+
+    obs, actions = _train_batch(seed, batch)
+    gen = torch.Generator(device="cuda").manual_seed(10 * seed)
     draws = {
         "noise": torch.randn(actions.shape, generator=gen, device="cuda"),
-        "time": torch.rand(2, generator=gen, device="cuda"),
-        "augment_params": {k: augment.draw_augment_params(gen, 2, "wrist" not in k, device="cuda") for k in IMAGE_KEYS},
+        "time": torch.rand(batch, generator=gen, device="cuda"),
+        "augment_params": {k: augment.draw_augment_params(gen, batch, "wrist" not in k, device="cuda") for k in IMAGE_KEYS},
     }
+    return obs, actions, draws
+
+
+def _loss_and_grads(model, device, obs, actions, draws):
+    """(loss, {name: gradient on the host} of every parameter that trains, ms) with the model's tensors on ``device``."""
+    o, a, d = _on(device, obs, actions, draws)
+    model.zero_grad(set_to_none=True)
+    t = time.perf_counter()
+    loss = model.compute_loss(o, a, train=True, **d).mean()
+    loss.backward()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out = {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
+           for k, p in model.named_parameters() if p.requires_grad}
+    return loss.item(), out, (time.perf_counter() - t) * 1000
+
+
+def check_model_gradients() -> None:
+    """Phase 8: full-width, depth-2 f32 gradients on the card (kernels) against the host CPU (plain)."""
+    from kai0_tpu_torch.models.pi0 import Pi0
+
+    config = _cut_depth_config(pi05=True, dtype="float32")
+    model = Pi0(config, device="cuda", param_dtype=torch.float32).init_weights(
+        torch.Generator(device="cuda").manual_seed(8))
+    obs, actions, draws = _gradient_inputs(8)
 
     def grads(device):
-        o, a, d = _on(device, obs, actions, draws)
-        model.zero_grad(set_to_none=True)
-        t = time.perf_counter()
-        loss = model.compute_loss(o, a, train=True, **d).mean()
-        loss.backward()
-        if device == "cuda":
-            torch.cuda.synchronize()
-        out = {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu() for k, p in model.named_parameters()}
-        return loss.item(), out, (time.perf_counter() - t) * 1000
+        return _loss_and_grads(model, device, obs, actions, draws)
 
     _reset_launches()
     card_loss, card, card_ms = grads("cuda")
@@ -557,19 +809,65 @@ def check_model_gradients() -> None:
     del model
 
 
+def check_lora_int8_gradients() -> None:
+    """Phase 12: the LoRA + int8 loss and trainable gradients, full width, depth 2, f32: card (kernels) vs host (plain)."""
+    from kai0_tpu_torch.models.pi0 import Pi0
+    from kai0_tpu_torch.ops import quant
+    from kai0_tpu_torch.training import train_lib
+
+    config = _cut_depth_config(pi05=True, dtype="float32", paligemma_variant="gemma_2b_lora",
+                               action_expert_variant="gemma_300m_lora")
+    model = Pi0(config, device="cuda", param_dtype=torch.float32).init_weights(
+        torch.Generator(device="cuda").manual_seed(12))
+    mask = train_lib.freeze_params(model, quantize=True)
+    holders = sum(quant.is_quant(m) for m in model.modules())
+    _check(holders == 2 * 2 * 6 and not all(mask.values()), f"{holders} int8 holders at depth 2")
+    obs, actions, draws = _gradient_inputs(12)
+
+    _reset_launches()
+    card_loss, card, card_ms = _loss_and_grads(model, "cuda", obs, actions, draws)
+    launches = _read_launches()
+    _check(all(launches[k] > 0 for k in ("row_quant", "int8_matmul", "int8_matmul_lora", "flash_mha", "flash_mha_bwd",
+                                         "flash_mhsa", "flash_mhsa_bwd")),
+           f"the LoRA + int8 gradients did not go through the kernels: {launches}")
+    _check(set(card) == {k for k, t in mask.items() if t}, "gradients for the trainable leaves only")
+    for group in ("lora", "vision_tower", "action_in_proj", "gemma_expert"):
+        _check(max(g.abs().max().item() for k, g in card.items() if group in k) > 0, f"{group}: zero gradient on the card")
+
+    model.to("cpu")
+    torch.cuda.empty_cache()
+    host_loss, host, host_ms = _loss_and_grads(model, "cpu", obs, actions, draws)
+    _check(abs(card_loss - host_loss) <= INT8_LOSS_TOL * max(1.0, abs(host_loss)), f"loss card {card_loss} host {host_loss}")
+    worst, worst_key, worst_l2 = 0.0, None, 0.0
+    floor = 1e-6 * max(g.abs().max().item() for g in host.values())
+    for k, g in host.items():
+        scale = max(g.abs().max().item(), floor)
+        err = (card[k] - g).abs().max().item()
+        l2 = (card[k] - g).norm().item() / max(g.norm().item(), floor)
+        _check(err <= INT8_GRAD_TOL * scale, f"{k}: card vs host gradient error {err} > {INT8_GRAD_TOL} x {scale}")
+        _check(l2 <= INT8_GRAD_L2_TOL or g.abs().max().item() <= floor, f"{k}: card vs host gradient L2 error {l2}")
+        worst_l2 = max(worst_l2, l2 if g.abs().max().item() > floor else 0.0)
+        if err / scale > worst:
+            worst, worst_key = err / scale, k
+    print(f"LoRA + int8 gradients, full width, depth 2, f32, batch 2: loss card {card_loss:.6f} host {host_loss:.6f}; "
+          f"worst gradient error {worst:.3e} x max |grad| ({worst_key}), worst L2 error {worst_l2:.3e}; {len(host)} "
+          f"trainable tensors; launches {launches}; card {card_ms:.1f} ms, host {host_ms:.1f} ms")
+    del model
+
+
 def _reset_launches():
-    from kai0_tpu_torch.ops import adam_q8
+    from kai0_tpu_torch.ops import adam_q8, int8_matmul, row_quant
     from kai0_tpu_torch.ops import flash_attention as fa
 
-    fa.reset_launches()
-    adam_q8.reset_launches()
+    for module in (fa, adam_q8, row_quant, int8_matmul):
+        module.reset_launches()
 
 
 def _read_launches() -> dict:
     from kai0_tpu_torch.ops import adam_q8
     from kai0_tpu_torch.ops import flash_attention as fa
 
-    return {**fa.LAUNCHES, **adam_q8.LAUNCHES}
+    return {**fa.LAUNCHES, **adam_q8.LAUNCHES, **_int8_launches()}
 
 
 def _profile_families(prof) -> tuple[dict, float]:
@@ -585,6 +883,10 @@ def _profile_families(prof) -> tuple[dict, float]:
             fam = "attention forward (K1f, K2f)"
         elif "adam_q8" in name:
             fam = "8-bit AdamW (K3)"
+        elif "int8_mm" in name:
+            fam = "int8 matmuls (K4a, K4b)"
+        elif "row_quant" in name:
+            fam = "row quantization (K5)"
         elif any(s in name.lower() for s in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
             fam = "matmuls (cuBLAS)"
         elif "memcpy" in name.lower() or "memset" in name.lower():
@@ -596,28 +898,87 @@ def _profile_families(prof) -> tuple[dict, float]:
     return families, sum(ms for ms, _ in families.values())
 
 
-def train() -> tuple[dict, list]:
-    """Phase 9: the full fine-tune step at full width, twice from the same seed."""
+def _lora_int8_step_launches(batch: int) -> dict:
+    """Launches of the int8 kernels in one LoRA + int8 training step, worked out from the code.
+
+    A block runs both experts. Forward (run twice: once, and again as the
+    backward's recompute): per expert 3 row quantizations and 3 K4b products
+    (q, the joint kv, out), and per row chunk of the fused FFN 2 row
+    quantizations (x, act) and 3 K4a products (gate, up, down). Backward: per
+    expert 3 + 3 again (the three ``dx``), and per FFN chunk 4 row
+    quantizations (x, and the three ``dy·s``), 2 K4a (gate and up re-derived)
+    and 3 K4b (``dx`` of down, gate, up). The prefix expert's last layer
+    reaches the loss only through its K and V: its backward is the kv ``dx``,
+    plus the q ``dx`` on the zero gradient that the joint attention hands to
+    its query rows.
+    """
+    from kai0_tpu_torch.ops import quant
+
+    chunks = [len(quant._row_chunks(batch * rows, mlp_dim)) for rows, mlp_dim in ((968, 16384), (50, 4096))]  # prefix, suffix
+    depth = 18
+    fwd = {"row_quant": 6 + 2 * sum(chunks), "int8_matmul": 6, "int8_matmul_lora": 3 * sum(chunks)}
+    bwd = {"row_quant": 6 + 4 * sum(chunks), "int8_matmul": 6 + 3 * sum(chunks), "int8_matmul_lora": 2 * sum(chunks)}
+    last = {"row_quant": 2 + 3 + 4 * chunks[1], "int8_matmul": 2 + 3 + 3 * chunks[1], "int8_matmul_lora": 2 * chunks[1]}
+    return {k: 2 * depth * fwd[k] + (depth - 1) * bwd[k] + last[k] for k in fwd}
+
+
+def train(kind: str = "full") -> tuple[dict, list]:
+    """Phases 9 and 13: a fine-tune step at full width, 5 steps twice from the same seed.
+
+    ``kind="full"``: the full fine-tune (bf16 parameters, int8 AdamW moments).
+    ``kind="lora_int8"``: LoRA over a frozen int8 base (f32 trainable leaves, bf16 AdamW moments).
+    """
     from kai0_tpu_torch.models.pi0 import Pi0, Pi0Config
+    from kai0_tpu_torch.ops import quant
     from kai0_tpu_torch.training import optimizer, train_lib
 
-    config = Pi0Config(pi05=True)
-    train_config = train_lib.TrainConfig(
-        optimizer=optimizer.AdamW(state_dtype="int8"), param_dtype="bfloat16", ema_decay=None,
-    )
+    attention = {"flash_mha": 36, "flash_mha_bwd": 18, "flash_mhsa": 54, "flash_mhsa_bwd": 27}
+    if kind == "full":
+        config = Pi0Config(pi05=True)
+        train_config = train_lib.TrainConfig(
+            optimizer=optimizer.AdamW(state_dtype="int8"), param_dtype="bfloat16", ema_decay=None,
+        )
+        model = Pi0(config, device="cuda", param_dtype=torch.bfloat16)
+        print(f"training: pi05 full fine-tune, batch {TRAIN_BATCH}, bf16 params (stochastic rounding), int8 AdamW "
+              f"moments, no EMA, per-block recompute, augmentation on, cosine schedule")
+    else:
+        config = Pi0Config(pi05=True, paligemma_variant="gemma_2b_lora", action_expert_variant="gemma_300m_lora")
+        train_config = train_lib.TrainConfig(
+            optimizer=optimizer.AdamW(state_dtype="bfloat16"), ema_decay=None, quantize_frozen=True,
+        )
+        model = Pi0(config, device="cuda", param_dtype=torch.float32)
+        print(f"training: pi05 LoRA fine-tune (rank 16 + rank 32) over a frozen int8 base, batch {TRAIN_BATCH}, f32 "
+              f"trainable leaves, bf16 AdamW moments, no EMA, per-block recompute, augmentation on, cosine schedule")
     t0 = time.perf_counter()
-    model = Pi0(config, device="cuda", param_dtype=torch.bfloat16)
     batches = [_train_batch(100 + i, TRAIN_BATCH) for i in range(TRAIN_STEPS)]
-    print(f"training: pi05 full fine-tune, batch {TRAIN_BATCH}, bf16 params (stochastic rounding), int8 AdamW "
-          f"moments, no EMA, per-block recompute, augmentation on, cosine schedule")
     runs, run_launches = [], None
     for run in range(2):
+        if kind == "lora_int8" and run == 1:  # the first run froze and quantized this model: start from a new one
+            del model
+            torch.cuda.empty_cache()
+            model = Pi0(config, device="cuda", param_dtype=torch.float32)
         model.init_weights(torch.Generator(device="cuda").manual_seed(9))
         state = train_lib.init_train_state(model, train_config)
         n_tensors = len(state.params)
+        trainable = {k for k, p in state.params.items() if p.requires_grad}
+        if kind == "full":
+            want = {**attention, "adam_q8": n_tensors, "row_quant": 0, "int8_matmul": 0, "int8_matmul_lora": 0}
+        else:
+            want = {**attention, "adam_q8": 0, **_lora_int8_step_launches(TRAIN_BATCH)}
+            frozen_before = {k: v.clone() for k, v in model.state_dict().items() if k not in trainable}
+            _check(set(state.opt_state["mu"]) == set(state.opt_state["nu"]) == trainable and 0 < len(trainable) < n_tensors,
+                   "the optimizer state should cover the trainable leaves only")
+            _check(all(state.params[k].dtype == torch.float32 for k in trainable)
+                   and all(m.dtype == torch.bfloat16 for m in state.opt_state["mu"].values()), "trainable f32, moments bf16")
         if run == 0:
             print(f"  state: {sum(p.numel() for p in state.params.values()) / 1e9:.3f}B params in {n_tensors} tensors, "
                   f"set up in {time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+            if kind == "lora_int8":
+                holders = [m for m in model.modules() if quant.is_quant(m)]
+                print(f"  {len(trainable)} trainable tensors ({sum(state.params[k].numel() for k in trainable) / 1e9:.3f}B "
+                      f"elements), {len(frozen_before)} frozen tensors of which {2 * len(holders)} are the codes and "
+                      f"scales of {len(holders)} int8 holders ({sum(m.qweight.numel() for m in holders) / 1e9:.3f}B codes)")
+                _check(len(holders) == 2 * 18 * 6, f"{len(holders)} int8 holders, want {2 * 18 * 6}")
         losses, walls = [], []
         _reset_launches()
         for step, batch in enumerate(batches):
@@ -639,15 +1000,15 @@ def train() -> tuple[dict, list]:
             loss, grad_norm = float(info["loss"]), float(info["grad_norm"])
             launches = {k: v - before[k] for k, v in _read_launches().items()}
             peak = torch.cuda.max_memory_allocated() / 2**30
+            mfu = MODEL_FLOPS_PER_SAMPLE * TRAIN_BATCH / (wall_ms / 1000) / PEAK_FLOPS[torch.bfloat16]
             print(f"  run {run} step {step}{' (profiled)' if profile else ''}: wall_ms={wall_ms:.2f} "
                   f"samples_per_s={TRAIN_BATCH / wall_ms * 1000:.3f} "
-                  f"model_mfu={MODEL_FLOPS_PER_SAMPLE * TRAIN_BATCH / (wall_ms / 1000) / PEAK_FLOPS[torch.bfloat16]:.4f} "
+                  + (f"model_mfu={mfu:.4f} " if kind == "full" else "") +
                   f"loss={loss:.6f} grad_norm={grad_norm:.6f} "
                   f"peak_mem_gib={peak:.3f} launches={launches}")
             _check(np.isfinite(loss) and np.isfinite(grad_norm) and grad_norm > 0, f"step {step}: loss {loss}, norm {grad_norm}")
-            want = {"flash_mha": 36, "flash_mha_bwd": 18, "flash_mhsa": 54, "flash_mhsa_bwd": 27, "adam_q8": n_tensors}
             _check(launches == want, f"step {step}: launches {launches}, want {want}")
-            if step == 0:
+            if step == 0 and kind == "full":
                 # Every tensor but the 7 the loss cannot reach (Gemma-2B's last layer past its K/V, its final norm).
                 moved = [sum(bool(m["q"].any()) for m in state.opt_state[key].values()) for key in ("mu", "nu")]
                 print(f"  int8 moments non-zero after step 1: mu {moved[0]}, nu {moved[1]} of {n_tensors} tensors")
@@ -660,6 +1021,16 @@ def train() -> tuple[dict, list]:
             print(f"  run 0: median wall_ms over steps 1-{TRAIN_STEPS - 1} = {statistics.median(walls[1:]):.2f} "
                   f"({TRAIN_BATCH / statistics.median(walls[1:]) * 1000:.3f} samples/s); launches over "
                   f"{TRAIN_STEPS} steps {run_launches}")
+        if kind == "lora_int8":
+            after = model.state_dict()
+            changed = [k for k, v in frozen_before.items() if not torch.equal(after[k], v)]
+            _check(not changed, f"frozen leaves changed during the steps: {changed[:5]}")
+            moved = sum(bool(m.any()) for m in state.opt_state["mu"].values())
+            _check(moved >= len(trainable) - 16, f"only {moved} of {len(trainable)} trainable tensors have a moment")
+            if run == 0:
+                print(f"  frozen leaves, int8 codes and scales bit-identical after {TRAIN_STEPS} steps ({len(frozen_before)} "
+                      f"tensors); optimizer state over the {len(trainable)} trainable tensors only, {moved} with a non-zero mu")
+            del frozen_before, after
         runs.append(losses)
         del state
         torch.cuda.empty_cache()
@@ -695,12 +1066,17 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
 
     check_kernels()
-    serve_launches = serve()
+    serve_launches, served = serve()
+    int8_serve_launches = serve_int8(served)
+    del served
     full_width_reference()
     record = check_attention_training()
     record.update(check_adam_q8())
+    record.update(check_int8_kernels())
     check_model_gradients()
-    launches, _ = train()
+    check_lora_int8_gradients()
+    launches, _ = train("full")
+    int8_launches, _ = train("lora_int8")
 
     sources = {
         "flash_mha": ("kai0_tpu_torch/ops/csrc/flash_mqa_fwd.cu", "kai0_tpu/ops/pallas_attention.py:109"),
@@ -708,15 +1084,24 @@ def main() -> int:
         "flash_mhsa": ("kai0_tpu_torch/ops/csrc/flash_mhsa_fwd.cu", "kai0_tpu/ops/pallas_attention.py:419"),
         "flash_mhsa_bwd": ("kai0_tpu_torch/ops/csrc/flash_mhsa_bwd.cu", "kai0_tpu/ops/pallas_attention.py:449"),
         "adam_q8": ("kai0_tpu_torch/ops/csrc/adam_q8.cu", "kai0_tpu/ops/pallas_q8.py:119"),
+        "row_quant": ("kai0_tpu_torch/ops/csrc/row_quant.cu", "kai0_tpu/ops/pallas_rowquant.py:68"),
+        "int8_matmul": ("kai0_tpu_torch/ops/csrc/int8_mm.cu", "kai0_tpu/ops/pallas_quant.py:257"),
+        "int8_matmul_lora": ("kai0_tpu_torch/ops/csrc/int8_mm.cu", "kai0_tpu/ops/pallas_quant.py:180"),
     }
+    int8_kernels = ("row_quant", "int8_matmul", "int8_matmul_lora")
     kernels = []
     for name, (source, replaces) in sources.items():
-        _check(launches[name] > 0, f"{name} was not launched on the training path")
+        # launches: over the 5 steps of the main path that runs the kernel (int8 kernels: LoRA + int8; others: full fine-tune)
+        path_launches = int8_launches if name in int8_kernels else launches
+        _check(path_launches[name] > 0, f"{name} was not launched on its training path")
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": launches[name], **record[name]}
+                 "launches": path_launches[name], **record[name]}
         if name in ("flash_mha", "flash_mhsa"):
-            _check(serve_launches[name] > 0, f"{name} was not launched on the serving path")
+            _check(serve_launches[name] > 0 and int8_launches[name] > 0, f"{name} was not launched on every path")
             entry["launches_serving"] = serve_launches[name]
+        if name in ("row_quant", "int8_matmul"):
+            _check(int8_serve_launches[name] > 0, f"{name} was not launched on the int8 serving path")
+            entry["launches_serving"] = int8_serve_launches[name]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

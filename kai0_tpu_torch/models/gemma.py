@@ -1,7 +1,9 @@
 """Two-expert Gemma stack with joint attention, PyTorch.
 
-Counterpart of ``kai0_tpu/models/gemma.py:182-427`` (and the non-LoRA gated FFN
-of ``kai0_tpu/models/lora.py:121-214``). Each expert is a ``GemmaModel`` in the
+Counterpart of ``kai0_tpu/models/gemma.py:182-427``; the projections and the
+gated FFN go through ``kai0_tpu_torch.models.lora``, which adds the LoRA terms of
+the ``*_lora`` variants and dispatches on whether a base weight is a
+``nn.Linear`` or a frozen int8 ``QuantLinear``. Each expert is a ``GemmaModel`` in the
 HF layout the ``PI0Pytorch`` state dict uses (``layers.{i}.self_attn.q_proj``,
 ``mlp.gate_proj``, ``input_layernorm``, ``norm``; the PaliGemma expert also owns
 ``embed_tokens``). ``apply`` runs layer i of every expert together: tokens of
@@ -29,6 +31,7 @@ from torch import nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from kai0_tpu_torch.models import lora as _lora
 from kai0_tpu_torch.ops import attention as _attention
 from kai0_tpu_torch.ops import masks as _masks
 
@@ -43,6 +46,13 @@ class Config:
     num_heads: int
     num_kv_heads: int
     head_dim: int
+    lora_attn: _lora.LoRAConfig | None = None
+    lora_ffn: _lora.LoRAConfig | None = None
+
+
+def _with_lora(config: Config, rank: int) -> Config:
+    lora = _lora.LoRAConfig(rank=rank, alpha=float(rank))
+    return dataclasses.replace(config, lora_attn=lora, lora_ffn=lora)
 
 
 _VARIANTS = {
@@ -50,10 +60,15 @@ _VARIANTS = {
     "gemma_300m": Config(width=1024, depth=18, mlp_dim=4096, num_heads=8, num_kv_heads=1, head_dim=256),
     "gemma_2b": Config(width=2048, depth=18, mlp_dim=16_384, num_heads=8, num_kv_heads=1, head_dim=256),
 }
+_VARIANTS.update({
+    "dummy_lora": _with_lora(_VARIANTS["dummy"], 4),  # test size: the freeze filter and the int8 base on the CPU
+    "gemma_300m_lora": _with_lora(_VARIANTS["gemma_300m"], 32),
+    "gemma_2b_lora": _with_lora(_VARIANTS["gemma_2b"], 16),
+})
 
 
 def get_config(variant: str) -> Config:
-    """Gemma variant table (the non-LoRA rows of ``kai0_tpu.models.gemma.get_config``)."""
+    """Gemma variant table (``kai0_tpu.models.gemma.get_config``)."""
     if variant not in _VARIANTS:
         raise ValueError(f"Unknown variant: {variant}")
     return _VARIANTS[variant]
@@ -86,7 +101,9 @@ def rms_norm(norm: RMSNorm | AdaRMSNorm, x: torch.Tensor, cond: torch.Tensor | N
     if cond is None:
         if not isinstance(norm, RMSNorm):
             raise ValueError("adaRMS norm params but no conditioning vector provided")
-        return (normed * (1 + norm.weight)).to(dtype), None
+        # 1 + w in f32 whatever w is stored in: jitted JAX keeps the sum's precision for a bf16 (frozen) scale,
+        # and rounding it to bf16 here moved the gradients by 1% against it.
+        return (normed * (1 + norm.weight.to(torch.float32))).to(dtype), None
     modulation = _linear(cond.to(dtype), norm.dense)
     scale, shift, gate = torch.chunk(modulation[:, None, :], 3, dim=-1)
     normed = normed * (1 + scale) + shift
@@ -102,18 +119,32 @@ class Attention(nn.Module):
         self.k_proj = nn.Linear(w, k * h, bias=False, **factory)
         self.v_proj = nn.Linear(w, k * h, bias=False, **factory)
         self.o_proj = nn.Linear(n * h, w, bias=False, **factory)
+        if lora := config.lora_attn:
+            # Per-head factors in the JAX package's shapes (``lora.init_einsum``); kv stacks K then V.
+            for name, shape in (("q", (n, w, h)), ("kv", (2, k, w, h)), ("o", (n, h, w))):
+                for ab, shp in zip("ab", _lora.lora_shapes(shape, lora), strict=True):
+                    setattr(self, f"{name}_lora_{ab}", nn.Parameter(torch.zeros(shp, **factory)))
+
+    def lora(self, name: str) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+        return getattr(self, f"{name}_lora_a", None), getattr(self, f"{name}_lora_b", None)
 
 
 class FeedForward(nn.Module):
     def __init__(self, config: Config, **factory):
         super().__init__()
-        self.gate_proj = nn.Linear(config.width, config.mlp_dim, bias=False, **factory)
-        self.up_proj = nn.Linear(config.width, config.mlp_dim, bias=False, **factory)
-        self.down_proj = nn.Linear(config.mlp_dim, config.width, bias=False, **factory)
+        d, f = config.width, config.mlp_dim
+        self.gate_proj = nn.Linear(d, f, bias=False, **factory)
+        self.up_proj = nn.Linear(d, f, bias=False, **factory)
+        self.down_proj = nn.Linear(f, d, bias=False, **factory)
+        if lora := config.lora_ffn:
+            r = lora.rank
+            self.gating_lora_a = nn.Parameter(torch.zeros((2, d, r), **factory))
+            self.gating_lora_b = nn.Parameter(torch.zeros((2, r, f), **factory))
+            self.linear_lora_a = nn.Parameter(torch.zeros((f, r), **factory))
+            self.linear_lora_b = nn.Parameter(torch.zeros((r, d), **factory))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        gate = F.gelu(_linear(x, self.gate_proj), approximate="tanh")
-        return _linear(gate * _linear(x, self.up_proj), self.down_proj)
+        return _lora.apply_ffn(self, x)
 
 
 class DecoderLayer(nn.Module):
@@ -161,9 +192,16 @@ def _attn(
             continue
         attn, c = layer.self_attn, layer.self_attn.config
         b, t, _ = x.shape
-        qs.append(_linear(x, attn.q_proj).view(b, t, c.num_heads, c.head_dim))
-        ks.append(_linear(x, attn.k_proj).view(b, t, c.num_kv_heads, c.head_dim))
-        vs.append(_linear(x, attn.v_proj).view(b, t, c.num_kv_heads, c.head_dim))
+        q = _lora.linear(x, attn.q_proj).view(b, t, c.num_heads, c.head_dim)
+        if hasattr(attn, "kv_proj"):  # frozen int8: K and V are one quantized matrix, as JAX's stacked kv_einsum leaf
+            k, v = _lora.linear(x, attn.kv_proj).view(b, t, 2, c.num_kv_heads, c.head_dim).unbind(dim=2)
+        else:
+            k, v = (_lora.linear(x, p).view(b, t, c.num_kv_heads, c.head_dim) for p in (attn.k_proj, attn.v_proj))
+        qs.append(_lora.apply_einsum(q, "BTD,NDH->BTNH", x, *attn.lora("q"), c.lora_attn))
+        if c.lora_attn is not None:
+            k, v = _lora.apply_einsum(torch.stack([k, v]), "BSD,2KDH->2BSKH", x, *attn.lora("kv"), c.lora_attn)
+        ks.append(k)
+        vs.append(v)
 
     q = torch.cat(qs, dim=1)
     k = torch.cat(ks, dim=1)
@@ -186,8 +224,9 @@ def _attn(
             out.append(None)
             continue
         end = start + x.shape[1]
-        chunk = encoded[:, start:end]
-        out.append(_linear(chunk.reshape(*chunk.shape[:2], -1), layer.self_attn.o_proj))
+        attn, chunk = layer.self_attn, encoded[:, start:end]
+        base = _lora.linear(chunk.reshape(*chunk.shape[:2], -1), attn.o_proj)
+        out.append(_lora.apply_einsum(base, "BTNH,NHD->BTD", chunk, *attn.lora("o"), attn.config.lora_attn))
         start = end
     return out, (k, v)
 

@@ -11,20 +11,25 @@ Parameters follow the ``PI0Pytorch`` state-dict layout
 (``paligemma_with_expert.paligemma.model.language_model...``,
 ``paligemma_with_expert.gemma_expert.model...``, ``action_in_proj`` ...), so the
 output of ``kai0_tpu.interop.torch_safetensors.jax_to_torch_state`` loads with
-``strict=True``. Only π₀.₅ (``pi05=True``) is ported; the π₀ state-token
-suffix is not. The model is built on the card unless ``device`` says otherwise.
+``strict=True``. The ``*_lora`` Gemma variants add LoRA factors (carried across by
+``kai0_tpu_torch.interop.lora_state_from_jax``), and ``Pi0Config.freeze_filter``
+names the leaves a LoRA fine-tune freezes. Only π₀.₅ (``pi05=True``) is ported;
+the π₀ state-token suffix is not. The model is built on the card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
 
+from collections.abc import Callable
 import dataclasses
 import math
+import re
 
 import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
 
+from kai0_tpu_torch import param_paths as _param_paths
 from kai0_tpu_torch.models import gemma as _gemma
 from kai0_tpu_torch.models import model as _model
 from kai0_tpu_torch.models import siglip as _siglip
@@ -69,6 +74,37 @@ class Pi0Config:
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    def freeze_filter(self) -> Callable[[str], bool]:
+        """Predicate on the port's parameter names (True = frozen): the JAX filter on the path each name maps to."""
+        frozen = make_freeze_filter(self.paligemma_variant, self.action_expert_variant)
+        return lambda name: frozen(_param_paths.jax_param_path(name))
+
+
+def make_freeze_filter(paligemma_variant: str, action_expert_variant: str) -> Callable[[str], bool]:
+    """LoRA freeze logic on JAX parameter paths (True = frozen), as ``kai0_tpu.models.pi0.make_freeze_filter``:
+    the base weights of a LoRA'd expert freeze, LoRA factors never do."""
+    gemma_re = re.compile(r".*llm.*")
+    expert_re = re.compile(r".*llm.*_1.*")
+    lora_re = re.compile(r".*lora.*")
+
+    pg_lora = "lora" in paligemma_variant
+    ae_lora = "lora" in action_expert_variant
+
+    def frozen(path: str) -> bool:
+        if not (pg_lora or ae_lora):
+            return False
+        if lora_re.match(path):
+            return False
+        if pg_lora and gemma_re.match(path):
+            if not ae_lora and expert_re.match(path):
+                return False  # action expert trains fully
+            return True
+        if ae_lora and not pg_lora:
+            return bool(expert_re.match(path))
+        return False
+
+    return frozen
 
 
 class _Node(nn.Module):
@@ -131,7 +167,8 @@ class Pi0(nn.Module):
         LayerNorm scales ~ 1 + N(0, 0.1²) and RMSNorm ``w`` ~ N(0, 0.1²) (applied as
         1+w). The leaves that the JAX init zeroes (adaRMS ``dense``, the SigLIP
         head) are drawn like the others, so the action expert's gates are open
-        and image tokens reach the actions.
+        and image tokens reach the actions. LoRA factors ~ N(0, init_stddev²),
+        both of them (as the JAX init), drawn after everything else.
         """
 
         def normal(t, std):
@@ -150,6 +187,11 @@ class Pi0(nn.Module):
                 normal(module.bias, 0.02)
             elif isinstance(module, _gemma.RMSNorm):
                 normal(module.weight, 0.1)
+        for expert in self.experts:
+            for name, p in expert.named_parameters():
+                if "lora" in name:
+                    lora = expert.config.lora_attn if "self_attn" in name else expert.config.lora_ffn
+                    normal(p, lora.init_stddev)
         return self
 
     # -- embedding ---------------------------------------------------------------------

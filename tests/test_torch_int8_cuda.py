@@ -1,0 +1,116 @@
+"""The int8 CUDA kernels of kai0_tpu_torch (K5, K4b, K4a) against their plain PyTorch versions.
+
+This file imports no JAX, so that the card's machine (which has none) can run it
+without the repository's conftest:
+
+    python -m pytest tests/test_torch_int8_cuda.py -m cuda --noconftest -q
+
+The ``cuda`` tests skip where no card is present. K5 (codes and scales) and
+K4b (both orientations, with and without column scales, bf16 and f32 outputs)
+are held bit-equal. K4a (the forward orientation only) sums its rank-r term in another order than the plain
+version's library product, so the bf16 rounding of that term can flip by one
+unit in its last place: at most 1e-3 of the bf16 outputs differ at all, and
+each by at most 2^-7 x max(|y|, |rank-r term|) (one bf16 step of the larger of
+the output and the term; where the two nearly cancel, a step of the term is
+many steps of the output); in f32 the difference is at most 1e-5 x max |y|
+(the r-term sum's rounding).
+"""
+
+import pytest
+import torch
+
+from kai0_tpu_torch.ops import int8_matmul as mm
+from kai0_tpu_torch.ops import row_quant as rq
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _operands(m, n, k, seed, device, rank=None, dtype=torch.bfloat16):
+    g = torch.Generator(device=device).manual_seed(seed)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=device, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=device, dtype=torch.int8)
+    sx = torch.rand(m, 1, generator=g, device=device) * 1e-2 + 1e-4
+    sn = torch.rand(n, generator=g, device=device) * 1e-3 + 1e-5
+    if rank is None:
+        return xq, w, sx, sn
+    u = torch.randn(m, rank, generator=g, device=device).to(dtype)
+    b = (torch.randn(rank, n, generator=g, device=device) * 5).to(dtype)
+    return xq, w, sx, sn, u, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k", [(50, 1024), (968, 2048), (300, 16384), (7, 100), (33, 1027)])
+def test_row_quant_kernel_is_bit_equal(cuda, dtype, m, k):
+    g = torch.Generator(device=cuda).manual_seed(k)
+    x = (torch.randn(m, k, generator=g, device=cuda) * 3).to(dtype)
+    x[1] = 0  # a row of zeros: s = 1e-30/127, codes 0
+    before = rq.LAUNCHES["row_quant"]
+    xq, sx = rq.row_quant(x)
+    torch.cuda.synchronize()
+    assert rq.LAUNCHES["row_quant"] == before + 1
+    ref_q, ref_s = rq.row_quant_plain(x)
+    assert xq.dtype == torch.int8 and sx.dtype == torch.float32 and sx.shape == (m, 1)
+    assert torch.equal(sx, ref_s), (sx - ref_s).abs().max().item()
+    assert torch.equal(xq, ref_q), (xq.int() - ref_q.int()).abs().max().item()
+    assert not xq[1].any() and xq.abs().max().item() == 127
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nt", [True, False])
+@pytest.mark.parametrize("m,n,k", [(50, 256, 1024), (968, 2048, 2048), (200, 4096, 16384), (130, 1024, 4096),
+                                   (70, 72, 48), (5, 33, 100), (129, 130, 17)])
+def test_int8_matmul_kernel_is_bit_equal(cuda, out_dtype, nt, m, n, k):
+    xq, w, sx, sn = _operands(m, n, k, m + n + k, cuda)
+    w = w if nt else w.T.contiguous()
+    for scales in (sn, None):
+        before = mm.LAUNCHES["int8_matmul"]
+        out = mm.int8_matmul(xq, w, sx, scales, nt=nt, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert mm.LAUNCHES["int8_matmul"] == before + 1
+        ref = mm.int8_matmul_plain(xq, w, sx, scales, nt=nt, out_dtype=out_dtype)
+        assert out.dtype == out_dtype and torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,rank", [(50, 4096, 1024, 32), (968, 16384, 2048, 16), (968, 2048, 16384, 16),
+                                        (1600, 1024, 4096, 32), (70, 72, 48, 4), (129, 130, 32, 7)])
+def test_int8_matmul_lora_kernel_bf16_ulp(cuda, m, n, k, rank):
+    xq, w, sx, sn, u, b = _operands(m, n, k, m + n + k + rank, cuda, rank)
+    before = mm.LAUNCHES["int8_matmul_lora"]
+    out = mm.int8_matmul_lora(xq, w, sx, sn, u, b)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["int8_matmul_lora"] == before + 1
+    ref = mm.int8_matmul_lora_plain(xq, w, sx, sn, u, b)
+    term = (u @ b).float()
+    diff = (out.float() - ref.float()).abs()
+    assert (diff <= 2.0**-7 * torch.maximum(ref.float().abs(), term.abs())).all(), diff.max().item()
+    assert (diff > 0).float().mean().item() <= 1e-3
+    base = mm.int8_matmul_plain(xq, w, sx, sn, nt=True)
+    assert (out.float() - base.float()).abs().max().item() > 0.1  # the rank-r term is in the output
+
+
+@pytest.mark.cuda
+def test_int8_matmul_lora_kernel_f32(cuda):
+    xq, w, sx, sn, u, b = _operands(100, 4096, 2048, 3, cuda, 16, torch.float32)
+    out = mm.int8_matmul_lora(xq, w, sx, sn, u, b, out_dtype=torch.float32)
+    ref = mm.int8_matmul_lora_plain(xq, w, sx, sn, u, b, out_dtype=torch.float32)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    xq, w, sx, sn, u, b = _operands(8, 16, 64, 0, cuda, 40)
+    with pytest.raises(ValueError):
+        mm.int8_matmul_lora(xq, w, sx, sn, u, b)  # rank 40 > 32
+    with pytest.raises(ValueError):
+        mm.int8_matmul(xq.T, w, sx, sn, nt=True)  # contraction mismatch
+    with pytest.raises(ValueError):
+        rq.row_quant(torch.zeros(4, 8, device=cuda, dtype=torch.float16))
