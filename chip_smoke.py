@@ -28,12 +28,15 @@ Phases, none of which catches an error (any failure exits non-zero):
    the card (kernels) and on the host CPU (plain versions) from the same
    weights and noise; the two must agree within 1e-3.
 6. Attention at the training shapes, forward and backward kernels against the
-   plain version and its autograd: MQA at B=2, T=S=1018 with the training mask
+   plain version and its autograd: MQA at T=S=1018 with the training mask
    (3x256 image tokens, one camera masked in one sample, 200 prompt tokens with
-   padding, 50 action tokens behind the ar mask), SigLIP at [6,16,256,72];
-   f32 and bf16, unit-normal inputs and a unit-normal dO that is non-zero on
-   the fully masked rows. Tolerances per gradient: max abs <= 1e-4 x max |grad|
-   in f32, <= 2e-2 x max |grad| in bf16. Times beside SDPA forward+backward.
+   padding, 50 action tokens behind the ar mask) at B=2 in f32 and bf16 and at
+   B=32 (the main path's batch) in bf16, where the bf16 kernels run on the
+   tensor cores; SigLIP at [6,16,256,72] in f32 and bf16; unit-normal inputs
+   and a unit-normal dO that is non-zero on the fully masked rows. Tolerances
+   as in phase 3 for the forward; per gradient: max abs <= 1e-4 x max |grad| in
+   f32, <= 2e-2 x max |grad| in bf16. Times beside SDPA forward and
+   forward+backward and the bound.
 7. The 8-bit AdamW kernel on a [2048, 16384] bf16 leaf (Gemma-2B's FFN) with
    moments from two earlier steps. Deterministic mode: scales bit-equal, codes
    within 1 on at most 1e-5 of the elements, update within 1e-6 relative.
@@ -97,8 +100,8 @@ Phases, none of which catches an error (any failure exits non-zero):
     step runs under torch.profiler.
 
 The line before the last is the kernels' JSON record: times in bf16, the
-attention kernels at phase 6's shapes (batch 2: the plain version's [B,8,T,S]
-f32 scores at batch 32 are what the kernels exist to avoid), the AdamW kernel
+attention kernels at phase 6's shapes (K1f/K1b at batch 32, with the batch-2
+numbers under the same keys suffixed ``_b2``; K2 at [6,16,256,72]), the AdamW kernel
 at phase 7's, the int8 kernels at shapes phase 13 launches (K5 on a [7744,
 16384] bf16 chunk, K4a the gate/up product of that chunk, K4b its ``dx``);
 ``launches`` from the first 5-step run of the path that runs the kernel: phase
@@ -455,17 +458,23 @@ def _grad_errors(got, want) -> list[float]:
 
 
 def check_attention_training() -> dict:
-    """Phase 6: forward and backward attention kernels at the training shapes."""
+    """Phase 6: forward and backward attention kernels at the training shapes.
+
+    MQA at B=2 (f32 and bf16) and at B=32 (bf16, the main path's shape); SigLIP at
+    [6,16,256,72]. The record's ``flash_mha`` / ``flash_mha_bwd`` numbers are
+    B=32's, with B=2's under the same keys suffixed ``_b2``.
+    """
     from kai0_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(6)
-    mask = _training_mask(2)
-    dead = (~mask.any(dim=-1)).sum().item()
-    _check(dead > 0, "the training mask should have fully masked rows")
     record = {}
-    for name in ("flash_mha", "flash_mhsa"):
+    cases = (("flash_mha", 2, (torch.float32, torch.bfloat16)), ("flash_mha", TRAIN_BATCH, (torch.bfloat16,)),
+             ("flash_mhsa", 6, (torch.float32, torch.bfloat16)))
+    for name, batch, dtypes in cases:
         if name == "flash_mha":
-            shape_q, shape_kv, label = (2, 1018, 8, 256), (2, 1018, 1, 256), "B=2 T=S=1018"
+            mask = _training_mask(batch)
+            _check((~mask.any(dim=-1)).sum().item() > 0, "the training mask should have fully masked rows")
+            shape_q, shape_kv, label = (batch, 1018, 8, 256), (batch, 1018, 1, 256), f"B={batch} T=S=1018"
             fwd_flops, bwd_flops = _mqa_flops(mask, 8, 256, 2), _mqa_flops(mask, 8, 256, 5)
         else:
             shape_q = shape_kv = (6, 16, 256, 72)
@@ -473,7 +482,7 @@ def check_attention_training() -> dict:
             fwd_flops, bwd_flops = 4 * 6 * 16 * 256 * 256 * 72, 10 * 6 * 16 * 256 * 256 * 72
         base = [torch.randn(shp, generator=gen, device="cuda") for shp in (shape_q, shape_kv, shape_kv, shape_q)]
         base[0] /= base[0].shape[-1] ** 0.5
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             q, k, v, dout = (x.to(dtype) for x in base)
             if name == "flash_mha":
                 extra = (mask,)
@@ -496,16 +505,20 @@ def check_attention_training() -> dict:
             grads, ref_grads = bwd(), plain_bwd()
             errs = _grad_errors(grads, ref_grads)
             _check(max(errs) <= GRAD_TOL[str(dtype)[6:]], f"{name}_bwd {label} {dtype}: relative errors {errs}")
+            bwd_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref_grads, strict=True))
+            del ref_grads  # at B=32 the plain backward's f32 [32,8,1018,1018] tensors are ~1 GB each
+            torch.cuda.empty_cache()
             times = {key: _cuda_ms(fn, runs=10) for key, fn in (
                 ("fwd", fwd), ("plain_fwd", plain_fwd), ("sdpa_fwd", _sdpa(q, k, v, *extra)),
                 ("bwd", bwd), ("plain_bwd", plain_bwd), ("sdpa_fwd_bwd", _sdpa(q, k, v, *extra, dout=dout)),
             )}
+            torch.cuda.empty_cache()
             print(f"kernel {name} training {label} {str(dtype)[6:]}: fwd max_abs_err={fwd_err.max().item():.3e} "
                   f"bwd max_err/max|grad| (q,k,v)={[f'{e:.3e}' for e in errs]} "
                   + " ".join(f"{key}_ms={t:.4f}" for key, t in times.items()))
             if dtype != torch.bfloat16:
                 continue
-            bwd_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref_grads, strict=True))
+            suffix = "_b2" if name == "flash_mha" and batch == 2 else ""
             for key, flops, nbytes, err, ms, plain_ms, lib_ms in (
                 (name, fwd_flops, _nbytes(q, k, v, *extra, out, lse), fwd_err.max().item(),
                  times["fwd"], times["plain_fwd"], times["sdpa_fwd"]),
@@ -513,9 +526,13 @@ def check_attention_training() -> dict:
                  times["bwd"], times["plain_bwd"], times["sdpa_fwd_bwd"]),
             ):
                 bound_ms, bound_by = _bound(flops, nbytes, dtype)
-                record[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                               "bound_by": bound_by, "library_ms": lib_ms}
-                print(f"  {key}: bound_ms={bound_ms:.4f} ({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+                record.setdefault(key, {}).update({
+                    f"max_abs_err{suffix}": err, f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                    f"bound_ms{suffix}": bound_ms, f"bound_by{suffix}": bound_by, f"library_ms{suffix}": lib_ms})
+                print(f"  {key} {label}: bound_ms={bound_ms:.4f} ({bound_by}; {flops / 1e9:.2f} GFLOP, "
+                      f"{nbytes / 1e6:.1f} MB); kernel / bound {ms / bound_ms:.1f}, kernel / library {ms / lib_ms:.2f}")
+            del out, lse, grads, fwd_err
+        torch.cuda.empty_cache()
     return record
 
 
@@ -870,16 +887,16 @@ def _read_launches() -> dict:
     return {**fa.LAUNCHES, **adam_q8.LAUNCHES, **_int8_launches()}
 
 
-def _profile_families(prof) -> tuple[dict, float]:
-    """Device ms of one profiled step by kernel family, and the summed device ms."""
-    families = {}
+def _profile_families(prof) -> tuple[dict, float, dict]:
+    """Device ms of one profiled step by kernel family, the summed device ms, and (ms, count) by attention kernel."""
+    families, attention = {}, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = e.name
-        if "flash_bwd" in name:
+        if "flash_bwd" in name or "mqa_bwd" in name:
             fam = "attention backward (K1b, K2b)"
-        elif "flash_fwd" in name:
+        elif "flash_fwd" in name or "mqa_fwd" in name:
             fam = "attention forward (K1f, K2f)"
         elif "adam_q8" in name:
             fam = "8-bit AdamW (K3)"
@@ -895,7 +912,11 @@ def _profile_families(prof) -> tuple[dict, float]:
             fam = "elementwise / reductions / other"
         ms, count = families.get(fam, (0.0, 0))
         families[fam] = (ms + e.time_range.elapsed_us() / 1000, count + 1)
-    return families, sum(ms for ms, _ in families.values())
+        if fam.startswith("attention"):
+            kernel = name.split("(")[0].split("<")[0].removeprefix("void ")
+            ms, count = attention.get(kernel, (0.0, 0))
+            attention[kernel] = (ms + e.time_range.elapsed_us() / 1000, count + 1)
+    return families, sum(ms for ms, _ in families.values()), attention
 
 
 def _lora_int8_step_launches(batch: int) -> dict:
@@ -1035,10 +1056,12 @@ def train(kind: str = "full") -> tuple[dict, list]:
         del state
         torch.cuda.empty_cache()
     _check(runs[0] == runs[1], f"two runs from the same seed differ: {runs}")
-    families, busy_ms = _profile_families(prof)
+    families, busy_ms, attention = _profile_families(prof)
     print(f"  profiled step: summed device time {busy_ms:.2f} ms; by kernel family:")
     for fam, (ms, count) in sorted(families.items(), key=lambda kv: -kv[1][0]):
         print(f"    {fam}: {ms:.2f} ms, {count} kernels")
+    print("  attention kernels of the profiled step: " + "; ".join(
+        f"{kernel} {ms:.2f} ms x{count}" for kernel, (ms, count) in sorted(attention.items(), key=lambda kv: -kv[1][0])))
     return run_launches, runs[0]
 
 
@@ -1061,9 +1084,14 @@ def main() -> int:
     path = _build.build()
     _build.load()
     print(f"build: {path.name} in {time.perf_counter() - t:.2f}s (nvcc {_build.build_seconds}s)")
+    function = ""
     for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            function = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas: {function}: {line.strip().removeprefix('ptxas info    : ')}")
+            _check("mqa_mma" not in function or " 0 bytes spill stores" in line or "spill" not in line,
+                   f"the tensor-core attention kernel {function} spills registers: {line.strip()}")
 
     check_kernels()
     serve_launches, served = serve()

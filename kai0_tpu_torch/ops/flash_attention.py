@@ -5,7 +5,9 @@ Counterpart of ``kai0_tpu/ops/pallas_attention.py``:
 - ``flash_mha``: masked multi-query attention for the Gemma experts, q [B,T,N,H],
   one K/V head k/v [B,S,1,H], bool mask [B,T,S] or [B,1,T,S]
   (CUDA kernels ``csrc/flash_mqa_fwd.cu`` and ``csrc/flash_mqa_bwd.cu``,
-  head_dim 256);
+  head_dim 256; bf16 runs on the tensor-core kernels of
+  ``csrc/flash_mqa_mma.cuh`` and needs N >= 8, f32 on the scalar kernels by
+  choice of dtype);
 - ``flash_mhsa``: dense head-major attention for SigLIP, q/k/v [B,N,T,H], q
   pre-scaled (CUDA kernels ``csrc/flash_mhsa_fwd.cu`` and
   ``csrc/flash_mhsa_bwd.cu``, head_dim 72).
@@ -134,6 +136,7 @@ def _mqa_mask(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Ten
     s = k.shape[1]
     _require(h == _MQA_HEAD_DIM, f"head_dim {h} (kernel built for {_MQA_HEAD_DIM})")
     _require(k.shape == (b, s, 1, h) and v.shape == k.shape, f"k/v shape {tuple(k.shape)} (need [B,S,1,H])")
+    _require(q.dtype == torch.float32 or n >= 8, f"{n} query heads (the bf16 kernels take 8 or more per K/V head)")
     if mask.ndim == 4:
         _require(mask.shape[1] == 1, f"mask shape {tuple(mask.shape)}")
         mask = mask[:, 0]
@@ -153,7 +156,8 @@ def flash_mha_fwd(
     splits, chunk = _splits(b * -(-t * n // _ROWS_PER_BLOCK), s, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((b, t * n), dtype=torch.float32, device=q.device)
-    part_acc, part_ml = _workspace(splits, rows, h, q.device)
+    # The bf16 kernel writes out and lse itself when the key axis is not split.
+    part_acc, part_ml = _workspace(splits if q.dtype == torch.float32 or splits > 1 else 0, rows, h, q.device)
     err = _build.load().kai0_flash_mqa_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.view(torch.uint8).data_ptr(),
         out.data_ptr(), lse.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),

@@ -5,12 +5,14 @@ without the repository's conftest:
 
     python -m pytest tests/test_torch_flash_cuda.py -m cuda --noconftest -q
 
-The ``cuda`` tests skip where no card is present. Tolerances, with unit-normal
-inputs and q scaled by head_dim**-0.5: forward, max abs 1e-4 in f32 (summation
-order); in bf16 max abs 2e-2 and mean abs 2e-3 (the kernel rounds the
-unnormalised softmax weights to bf16, the plain version the normalised
-probabilities). Backward, against autograd through the plain version: max abs
-<= 1e-4 x max |grad| in f32 and <= 2e-2 x max |grad| in bf16, per gradient.
+The ``cuda`` tests skip where no card is present. bf16 inputs of ``flash_mha``
+run on the tensor-core kernels (``csrc/flash_mqa_mma.cuh``), f32 inputs on the
+scalar ones. Tolerances, with unit-normal inputs and q scaled by
+head_dim**-0.5: forward, max abs 1e-4 in f32 (summation order); in bf16 max abs
+2e-2 and mean abs 2e-3 (the kernel rounds the unnormalised softmax weights to
+bf16, the plain version the normalised probabilities). Backward, against
+autograd through the plain version: max abs <= 1e-4 x max |grad| in f32 and
+<= 2e-2 x max |grad| in bf16, per gradient.
 K3 in deterministic mode: scales equal, codes within 1 on at most 1e-5 of the
 elements, update within 1e-6 relative.
 """
@@ -124,6 +126,8 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fa.flash_mha(q.transpose(1, 2).contiguous().transpose(1, 2), k, k, mask)
     with pytest.raises(ValueError, match="mask"):
         fa.flash_mha(q, k, k, mask.float())
+    with pytest.raises(ValueError, match="query heads"):
+        fa.flash_mha(q[:, :, :4].contiguous().bfloat16(), k.bfloat16(), k.bfloat16(), mask)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_mhsa(*(torch.randn(1, 2, 64, 64, device=cuda) for _ in range(3)))
 
@@ -157,6 +161,62 @@ def test_flash_mha_bwd_matches_autograd_of_plain(cuda, dtype, b, t, s):
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_mha_bwd"] == before + 1
     _assert_grads_close(got, fa.flash_mha_bwd_plain(q, k, v, mask, dout), dtype)
+
+
+def _training_mask(batch: int, device) -> torch.Tensor:
+    """The joint [prefix, suffix] mask of a training step: padded prompts per sample, one camera masked in one."""
+    valid = torch.ones(batch, 1018, dtype=torch.bool, device=device)
+    valid[0, 512:768] = False
+    for b in range(batch):
+        valid[b, 768 + 40 + 30 * b : 968] = False
+    return make_attn_mask(valid, torch.arange(1018, device=device) == 968)
+
+
+def _bf16_mqa_case(b, t, s, device):
+    """bf16 q, k, v, dO and a mask that differs per sample, with fully masked rows (the training mask at T=S=1018)."""
+    g = torch.Generator(device=device).manual_seed(1000 * b + t + s)
+    q = (torch.randn(b, t, 8, 256, generator=g, device=device) / 16).bfloat16()
+    k, v = (torch.randn(b, s, 1, 256, generator=g, device=device).bfloat16() for _ in range(2))
+    dout = torch.randn(b, t, 8, 256, generator=g, device=device).bfloat16()
+    if t == s == 1018:
+        mask = _training_mask(b, device)
+    else:
+        mask = torch.rand(b, t, s, generator=g, device=device) < torch.linspace(0.2, 0.8, b, device=device)[:, None, None]
+        mask[:, ::3] = False
+    return q, k, v, mask, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,s", [(2, 37, 131), (1, 50, 1018), (3, 4, 64), (2, 130, 65), (8, 1018, 1018)])
+def test_bf16_tensor_core_mqa_matches_plain(cuda, b, t, s):
+    """K1f and K1b in bf16 (the tensor-core kernels): ragged row and key tiles, masks that differ per sample,
+    fully masked rows with a non-zero dO, a split key axis (the small shapes) and one at batch 8 (one split)."""
+    q, k, v, mask, dout = _bf16_mqa_case(b, t, s, cuda)
+    assert (~mask.any(dim=-1)).any(), "the case should hold fully masked rows"
+    out, lse = fa.flash_mha_fwd(q, k, v, mask)
+    torch.cuda.synchronize()
+    _assert_close(out, fa.flash_mha_plain(q, k, v, mask), torch.bfloat16)
+    logits = torch.einsum("btnh,bsh->btns", q.float(), k[:, :, 0].float())
+    logits = torch.where(mask[:, :, None, :], logits, fa.BIG_NEG)
+    valid = mask.any(dim=-1).repeat_interleave(8, dim=1)
+    torch.testing.assert_close(lse[valid], torch.logsumexp(logits, dim=-1).reshape(b, -1)[valid], rtol=1e-5, atol=1e-4)
+    del logits
+    got = fa.flash_mha_bwd(q, k, v, mask, out, lse, dout)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, fa.flash_mha_bwd_plain(q, k, v, mask, dout), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_bf16_mqa_backward_is_deterministic(cuda):
+    """No atomics: two backward calls on the same inputs give the same bits (the training step relies on it)."""
+    q, k, v, mask, dout = _bf16_mqa_case(2, 1018, 1018, cuda)
+    out, lse = fa.flash_mha_fwd(q, k, v, mask)
+    first = fa.flash_mha_bwd(q, k, v, mask, out, lse, dout)
+    second = fa.flash_mha_bwd(q, k, v, mask, out, lse, dout)
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", first, second, strict=True):
+        assert torch.equal(a, b), f"d{name} differs between two calls"
+    assert torch.equal(fa.flash_mha_fwd(q, k, v, mask)[0], out)
 
 
 @pytest.mark.cuda
