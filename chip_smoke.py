@@ -26,17 +26,22 @@ Phases, none of which catches an error (any failure exits non-zero):
    wall time within one run.
 5. Reference at full width: the same architecture in f32 samples one chunk on
    the card (kernels) and on the host CPU (plain versions) from the same
-   weights and noise; the two must agree within 1e-3.
+   weights and noise; the two must agree within 1e-3. The same weights rounded
+   to bf16 sample the chunk on the card through the tensor-core K1 and K2; its
+   actions must lie within 0.1 x max |actions| (max abs) and 0.02 x mean
+   |actions| (mean abs) of the f32 host's (the reason is in
+   ``full_width_reference``).
 6. Attention at the training shapes, forward and backward kernels against the
    plain version and its autograd: MQA at T=S=1018 with the training mask
    (3x256 image tokens, one camera masked in one sample, 200 prompt tokens with
    padding, 50 action tokens behind the ar mask) at B=2 in f32 and bf16 and at
-   B=32 (the main path's batch) in bf16, where the bf16 kernels run on the
-   tensor cores; SigLIP at [6,16,256,72] in f32 and bf16; unit-normal inputs
-   and a unit-normal dO that is non-zero on the fully masked rows. Tolerances
-   as in phase 3 for the forward; per gradient: max abs <= 1e-4 x max |grad| in
-   f32, <= 2e-2 x max |grad| in bf16. Times beside SDPA forward and
-   forward+backward and the bound.
+   B=32 (the main path's batch) in bf16; SigLIP at [6,16,256,72] in f32 and
+   bf16 and at [96,16,256,72] (batch 32 x 3 cameras) in bf16; the bf16 kernels
+   run on the tensor cores. Unit-normal inputs and a unit-normal dO that is
+   non-zero on the fully masked rows. Tolerances as in phase 3 for the forward;
+   per gradient: max abs <= 1e-4 x max |grad| in f32, <= 2e-2 x max |grad| in
+   bf16; in bf16 two backward calls must give the same bits. Times beside SDPA
+   forward and forward+backward and the bound.
 7. The 8-bit AdamW kernel on a [2048, 16384] bf16 leaf (Gemma-2B's FFN) with
    moments from two earlier steps. Deterministic mode: scales bit-equal, codes
    within 1 on at most 1e-5 of the elements, update within 1e-6 relative.
@@ -57,7 +62,8 @@ Phases, none of which catches an error (any failure exits non-zero):
    samples/s, loss, grad_norm, peak GiB, launches (36/18 flash_mha
    forward/backward, 54/27 flash_mhsa, one adam_q8 per parameter tensor).
    A second run from the same seed must give identical losses; its last step
-   runs under torch.profiler for device time by kernel family.
+   runs under torch.profiler for device time by kernel family, and must launch
+   none of the scalar attention kernels (they serve f32 only).
 
 10. The int8 kernels against their plain versions at the full-width shapes of
     the int8 paths, every (K, N) of both experts (q, the joint kv, out,
@@ -68,7 +74,8 @@ Phases, none of which catches an error (any failure exits non-zero):
     K5 (``row_quant``; bf16 activations and the backward's f32 ``dy·s``) and
     K4b (``int8_matmul``; the forward orientation with both scales, the
     backward's orientation with the row scale only; bf16 and f32 outputs) are
-    held bit-equal. K4a (``int8_matmul_lora``; rank 16 or 32) sums its rank-r
+    held bit-equal. K4a (``int8_matmul_lora``; rank 16 or 32, and rank 64 on
+    Gemma-2B's gate/up at 7,744 rows) sums its rank-r
     term in another order than the plain version's library product: at most
     1e-3 of the bf16 outputs differ, each by at most 2^-7 x max(|y|, |term|)
     (one bf16 step of the term); f32 within 1e-5 x max |y|. Times beside the
@@ -100,10 +107,11 @@ Phases, none of which catches an error (any failure exits non-zero):
     step runs under torch.profiler.
 
 The line before the last is the kernels' JSON record: times in bf16, the
-attention kernels at phase 6's shapes (K1f/K1b at batch 32, with the batch-2
-numbers under the same keys suffixed ``_b2``; K2 at [6,16,256,72]), the AdamW kernel
-at phase 7's, the int8 kernels at shapes phase 13 launches (K5 on a [7744,
-16384] bf16 chunk, K4a the gate/up product of that chunk, K4b its ``dx``);
+attention kernels at phase 6's shapes (K1f/K1b at batch 32 and K2f/K2b at
+[96,16,256,72], with the batch-2 numbers under the same keys suffixed ``_b2``),
+the AdamW kernel at phase 7's, the int8 kernels at shapes phase 13 launches (K5
+on a [7744, 16384] bf16 chunk, K4a the gate/up product of that chunk, rank 64
+under keys suffixed ``_r64``, K4b its ``dx``);
 ``launches`` from the first 5-step run of the path that runs the kernel: phase
 9 for the attention and AdamW kernels, phase 13 for the int8 ones. The last
 line is ``{"ok": true, "device": {...}}``.
@@ -127,6 +135,7 @@ TRAIN_BATCH = 32  # per card: kai0's fine-tunes run a global batch of 256 on 8 c
 TOL = {"float32": {"max": 1e-4}, "bfloat16": {"max": 2e-2, "mean": 2e-3}}
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FULL_WIDTH_TOL = 1e-3
+BF16_SAMPLE_TOL = {"max": 0.1, "mean": 0.02}  # x max / mean |actions| of the f32 host (phase 5's docstring)
 MODEL_GRAD_TOL = 1e-3
 Q8_BIAS_TOL = 3e-3
 LORA_FLIP_SHARE = 1e-3  # K4a: share of bf16 outputs that may differ from the plain version
@@ -142,6 +151,9 @@ INT8_SITES = {
     "gemma_300m": ({"q": (1024, 2048), "kv": (1024, 512), "out": (2048, 1024), "gate/up": (1024, 4096),
                     "down": (4096, 1024)}, 32),
 }
+
+# The scalar-FMA attention kernels (flash_fwd.cuh, flash_bwd.cuh but its delta pass): f32 only.
+SCALAR_ATTENTION_KERNELS = ("flash_fwd_partial", "flash_fwd_combine", "flash_bwd_dkdv", "flash_bwd_dq")
 
 # NVIDIA's data-sheet peaks of the H100 SXM at 700 W (dense).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
@@ -407,7 +419,19 @@ def serve_int8(served) -> dict:
 
 
 def full_width_reference() -> None:
+    """Phase 5: one chunk sampled at full width on the card, in f32 and in bf16, against the f32 host CPU.
+
+    The bf16 model takes the f32 model's weights rounded to bf16 and the same
+    inputs and noise, and runs the tensor-core K1 and K2. bf16 keeps 8
+    significant bits (unit roundoff 2^-9): a random-weight π₀.₅ compounds that
+    over 27 SigLIP and 18 joint layers and 10 Euler steps, and int8 serving,
+    whose per-product error is of the same order, moves the actions by about 1%
+    of their range (phase 11). So the bf16 actions must lie within 0.1 x max
+    |actions| (max abs) and 0.02 x mean |actions| (mean abs) of the f32 host's:
+    room for that, while a wrong kernel moves them by O(|actions|).
+    """
     from kai0_tpu_torch.models.pi0 import Pi0, Pi0Config
+    from kai0_tpu_torch.ops import flash_attention as fa
     from kai0_tpu_torch.policies.policy import Policy
 
     config = Pi0Config(pi05=True, dtype="float32")
@@ -418,6 +442,13 @@ def full_width_reference() -> None:
     obs = _request_inputs(rng)
     noise = rng.standard_normal((50, 32)).astype(np.float32)
     on_card = Policy(model, config, device="cuda").infer(obs, noise=noise)
+    bf16_config = Pi0Config(pi05=True)
+    bf16_model = Pi0(bf16_config, device="cuda", param_dtype=torch.bfloat16).eval()
+    bf16_model.load_state_dict(model.state_dict())  # the same weights, rounded to bf16
+    fa.reset_launches()
+    on_card_bf16 = Policy(bf16_model, bf16_config, device="cuda").infer(obs, noise=noise)
+    _check(fa.LAUNCHES["flash_mhsa"] == 27 and fa.LAUNCHES["flash_mha"] == 198, f"bf16 sample launches {fa.LAUNCHES}")
+    del bf16_model
     model.to("cpu")
     torch.cuda.empty_cache()
     on_host = Policy(model, config, device="cpu").infer(obs, noise=noise)
@@ -426,6 +457,13 @@ def full_width_reference() -> None:
           f"(|actions| max {np.abs(on_host['actions']).max():.3f}; card {on_card['policy_timing']['infer_ms']:.1f} ms, "
           f"host {on_host['policy_timing']['infer_ms']:.1f} ms)")
     _check(np.isfinite(on_card["actions"]).all() and err <= FULL_WIDTH_TOL, f"full-width f32 mismatch {err}")
+    diff = np.abs(on_card_bf16["actions"] - on_host["actions"])
+    ref_max, ref_mean = float(np.abs(on_host["actions"]).max()), float(np.abs(on_host["actions"]).mean())
+    print(f"full-width bf16 sample: card (tensor-core K1, K2) vs f32 host CPU max_abs_err={diff.max():.4e} "
+          f"mean_abs_err={diff.mean():.4e} (|actions| max {ref_max:.3f}, mean {ref_mean:.3f}; "
+          f"limits {BF16_SAMPLE_TOL['max'] * ref_max:.4e}, {BF16_SAMPLE_TOL['mean'] * ref_mean:.4e})")
+    _check(np.isfinite(on_card_bf16["actions"]).all() and diff.max() <= BF16_SAMPLE_TOL["max"] * ref_max
+           and diff.mean() <= BF16_SAMPLE_TOL["mean"] * ref_mean, "full-width bf16 sample too far from the f32 host")
 
 
 # ---------------------------------------------------------------------------
@@ -460,26 +498,30 @@ def _grad_errors(got, want) -> list[float]:
 def check_attention_training() -> dict:
     """Phase 6: forward and backward attention kernels at the training shapes.
 
-    MQA at B=2 (f32 and bf16) and at B=32 (bf16, the main path's shape); SigLIP at
-    [6,16,256,72]. The record's ``flash_mha`` / ``flash_mha_bwd`` numbers are
-    B=32's, with B=2's under the same keys suffixed ``_b2``.
+    MQA at B=2 (f32 and bf16) and at B=32 (bf16, the main path's shape); SigLIP
+    at [6,16,256,72] (f32 and bf16: 2 samples x 3 cameras) and at [96,16,256,72]
+    (bf16: the batch-32 step's shape). The record's numbers are batch 32's, with
+    batch 2's under the same keys suffixed ``_b2``. In bf16 two backward calls
+    must give the same bits.
     """
     from kai0_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     record = {}
     cases = (("flash_mha", 2, (torch.float32, torch.bfloat16)), ("flash_mha", TRAIN_BATCH, (torch.bfloat16,)),
-             ("flash_mhsa", 6, (torch.float32, torch.bfloat16)))
-    for name, batch, dtypes in cases:
+             ("flash_mhsa", 2, (torch.float32, torch.bfloat16)), ("flash_mhsa", TRAIN_BATCH, (torch.bfloat16,)))
+    for name, samples, dtypes in cases:
         if name == "flash_mha":
+            batch = samples
             mask = _training_mask(batch)
             _check((~mask.any(dim=-1)).sum().item() > 0, "the training mask should have fully masked rows")
             shape_q, shape_kv, label = (batch, 1018, 8, 256), (batch, 1018, 1, 256), f"B={batch} T=S=1018"
             fwd_flops, bwd_flops = _mqa_flops(mask, 8, 256, 2), _mqa_flops(mask, 8, 256, 5)
         else:
-            shape_q = shape_kv = (6, 16, 256, 72)
-            label = "[6,16,256,72]"
-            fwd_flops, bwd_flops = 4 * 6 * 16 * 256 * 256 * 72, 10 * 6 * 16 * 256 * 256 * 72
+            batch = 3 * samples  # three cameras a sample
+            shape_q = shape_kv = (batch, 16, 256, 72)
+            label = f"[{batch},16,256,72]"
+            fwd_flops, bwd_flops = 4 * batch * 16 * 256 * 256 * 72, 10 * batch * 16 * 256 * 256 * 72
         base = [torch.randn(shp, generator=gen, device="cuda") for shp in (shape_q, shape_kv, shape_kv, shape_q)]
         base[0] /= base[0].shape[-1] ** 0.5
         for dtype in dtypes:
@@ -504,6 +546,9 @@ def check_attention_training() -> dict:
                    f"{name} forward {label} {dtype}: max {fwd_err.max().item()} mean {fwd_err.mean().item()}")
             grads, ref_grads = bwd(), plain_bwd()
             errs = _grad_errors(grads, ref_grads)
+            if dtype == torch.bfloat16:
+                _check(all(torch.equal(a, b) for a, b in zip(grads, bwd(), strict=True)),
+                       f"{name}_bwd {label}: two backward calls differ")
             _check(max(errs) <= GRAD_TOL[str(dtype)[6:]], f"{name}_bwd {label} {dtype}: relative errors {errs}")
             bwd_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref_grads, strict=True))
             del ref_grads  # at B=32 the plain backward's f32 [32,8,1018,1018] tensors are ~1 GB each
@@ -518,7 +563,7 @@ def check_attention_training() -> dict:
                   + " ".join(f"{key}_ms={t:.4f}" for key, t in times.items()))
             if dtype != torch.bfloat16:
                 continue
-            suffix = "_b2" if name == "flash_mha" and batch == 2 else ""
+            suffix = "_b2" if samples == 2 else ""
             for key, flops, nbytes, err, ms, plain_ms, lib_ms in (
                 (name, fwd_flops, _nbytes(q, k, v, *extra, out, lse), fwd_err.max().item(),
                  times["fwd"], times["plain_fwd"], times["sdpa_fwd"]),
@@ -666,10 +711,13 @@ def check_int8_kernels() -> dict:
                                                  "bound_by": bound_by, "library_ms": lib_ms}
                 if site not in ("gate/up", "down"):
                     continue
-                # K4a: the fused FFN's products with the rank-r term in the epilogue
-                for dtype in (bf16, f32):
-                    u = torch.randn(m, rank, generator=gen, device="cuda").to(dtype)
-                    b = (torch.randn(rank, n, generator=gen, device="cuda") * 0.05).to(dtype)
+                # K4a: the fused FFN's products with the rank-r term in the epilogue; at one shape also rank 64,
+                # two slices of the epilogue's rank loop (a rank no shipped variant uses)
+                ranks = (rank, 64) if (expert, site, m) == ("gemma_2b", "gate/up", INT8_CHUNK_ROWS) else (rank,)
+                for r, dtype in ((r, d) for r in ranks for d in (bf16, f32)):
+                    g = gen if r == rank else torch.Generator(device="cuda").manual_seed(r)  # the other cases' draws stay
+                    u = torch.randn(m, r, generator=g, device="cuda").to(dtype)
+                    b = (torch.randn(r, n, generator=g, device="cuda") * 0.05).to(dtype)
                     kernel = lambda: mm.int8_matmul_lora(xq, w, sx, sn, u, b, out_dtype=dtype)  # noqa: E731
                     plain = lambda: mm.int8_matmul_lora_plain(xq, w, sx, sn, u, b, out_dtype=dtype)  # noqa: E731
                     library = lambda: (torch._int_mm(xq, w.T).to(f32) * sx * sn + (u @ b).to(f32)).to(dtype)  # noqa: E731
@@ -680,22 +728,24 @@ def check_int8_kernels() -> dict:
                     if dtype == bf16:
                         term = (u @ b).to(f32).abs()
                         _check((diff <= 2.0**-7 * torch.maximum(ref.to(f32).abs(), term)).all() and share <= LORA_FLIP_SHARE,
-                               f"int8_matmul_lora {expert} {site} M={m} bf16: max err {max_err}, share {share}")
+                               f"int8_matmul_lora {expert} {site} M={m} r={r} bf16: max err {max_err}, share {share}")
                     else:
-                        _check(max_err <= 1e-5 * ref.abs().max().item(), f"int8_matmul_lora {expert} {site} M={m} f32: {max_err}")
+                        _check(max_err <= 1e-5 * ref.abs().max().item(), f"int8_matmul_lora {expert} {site} M={m} r={r} f32: {max_err}")
                     _check((out.to(f32) - mm.int8_matmul(xq, w, sx, sn, nt=True, out_dtype=dtype).to(f32)).abs().max().item() > 0.05,
                            "int8_matmul_lora: the rank-r term is missing")
                     if dtype == f32:
-                        print(f"kernel int8_matmul_lora {expert} {site} M={m} r={rank} f32: max_abs_err={max_err:.3e}")
+                        print(f"kernel int8_matmul_lora {expert} {site} M={m} r={r} f32: max_abs_err={max_err:.3e}")
                         continue
                     ms, plain_ms, lib_ms = (_cuda_ms(f, runs=10) for f in (kernel, plain, library))
-                    bound_ms, bound_by = _int8_bound(m, n, k, _nbytes(xq, w, sx, sn, u, b, out), rank)
-                    print(f"kernel int8_matmul_lora {expert} {site} M={m} K={k} N={n} r={rank} bf16: max_abs_err={max_err:.3e}, "
+                    bound_ms, bound_by = _int8_bound(m, n, k, _nbytes(xq, w, sx, sn, u, b, out), r)
+                    print(f"kernel int8_matmul_lora {expert} {site} M={m} K={k} N={n} r={r} bf16: max_abs_err={max_err:.3e}, "
                           f"share of outputs that differ {share:.3e}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                           f"int_mm_plus_lora_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) {2 * m * n * k / ms / 1e9:.1f} TOP/s")
                     if (expert, site, m) == ("gemma_2b", "gate/up", INT8_CHUNK_ROWS):
-                        record["int8_matmul_lora"] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                                                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+                        suffix = "" if r == rank else f"_r{r}"
+                        record.setdefault("int8_matmul_lora", {}).update({
+                            f"max_abs_err{suffix}": max_err, f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                            f"bound_ms{suffix}": bound_ms, f"bound_by{suffix}": bound_by, f"library_ms{suffix}": lib_ms})
     return record
 
 
@@ -894,9 +944,9 @@ def _profile_families(prof) -> tuple[dict, float, dict]:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = e.name
-        if "flash_bwd" in name or "mqa_bwd" in name:
+        if any(k in name for k in ("flash_bwd", "mqa_bwd", "mhsa_bwd")):
             fam = "attention backward (K1b, K2b)"
-        elif "flash_fwd" in name or "mqa_fwd" in name:
+        elif any(k in name for k in ("flash_fwd", "mqa_fwd", "mhsa_fwd")):
             fam = "attention forward (K1f, K2f)"
         elif "adam_q8" in name:
             fam = "8-bit AdamW (K3)"
@@ -1062,6 +1112,8 @@ def train(kind: str = "full") -> tuple[dict, list]:
         print(f"    {fam}: {ms:.2f} ms, {count} kernels")
     print("  attention kernels of the profiled step: " + "; ".join(
         f"{kernel} {ms:.2f} ms x{count}" for kernel, (ms, count) in sorted(attention.items(), key=lambda kv: -kv[1][0])))
+    scalar = [k for k in attention if any(s in k for s in SCALAR_ATTENTION_KERNELS)]
+    _check(not scalar, f"the bf16 step launched the scalar attention kernels {scalar}")
     return run_launches, runs[0]
 
 
@@ -1090,8 +1142,8 @@ def main() -> int:
             function = line.split("'")[1]
         elif "registers" in line or "spill" in line:
             print(f"  ptxas: {function}: {line.strip().removeprefix('ptxas info    : ')}")
-            _check("mqa_mma" not in function or " 0 bytes spill stores" in line or "spill" not in line,
-                   f"the tensor-core attention kernel {function} spills registers: {line.strip()}")
+            _check(not any(k in function for k in ("mqa_mma", "mhsa_mma")) or " 0 bytes spill stores" in line
+                   or "spill" not in line, f"the tensor-core attention kernel {function} spills registers: {line.strip()}")
 
     check_kernels()
     serve_launches, served = serve()

@@ -25,7 +25,9 @@
 //   * rounding points of the TPU kernel: P is rounded to the element type
 //     before P^T dO, dS before dS K and dS^T Q; every product accumulates in f32.
 //
-// Simple first: scalar f32 FMAs from shared memory, as the forward. A thread of
+// Simple first: scalar f32 FMAs from shared memory, as the forward. The C
+// entries run these kernels on f32 inputs only; the tensor-core kernels of
+// bf16 (flash_mqa_mma.cuh, flash_mhsa_mma.cuh) share the delta pass. A thread of
 // the 16x16 grid owns 4 rows x 2 keys of the logit tile, and either 2 keys x
 // ceil(H/16) columns of dK and dV (kernel 2) or 4 rows x ceil(H/16) columns of
 // dQ (kernel 3). Shared-memory rows are padded to H+1 floats (bank spread).
@@ -333,28 +335,18 @@ cudaError_t launch_flash_bwd(const BwdParams<T>& p, int batch, cudaStream_t stre
   return cudaGetLastError();
 }
 
-// The C entry points' common body: element-type dispatch.
+// The C entry points' body for f32 inputs (bf16 runs on the tensor-core kernels).
 template <int HD>
 int flash_bwd_entry(const void* q, const void* k, const void* v, const void* mask, const void* out,
                     const void* dout, const void* lse, void* delta, void* dq, void* dk, void* dv, int batch,
-                    int t_len, int s_len, int heads, int is_bf16, void* stream) {
+                    int t_len, int s_len, int heads, void* stream) {
   if (batch <= 0 || t_len <= 0 || s_len <= 0 || heads <= 0) return int(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    const BwdParams<T> p{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), m,
-                         static_cast<const T*>(out), static_cast<const T*>(dout), l, dl,
-                         static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), t_len, s_len, heads};
-    return int(launch_flash_bwd<T, HD>(p, batch, st));
-  }
   using T = float;
-  const BwdParams<T> p{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), m,
-                       static_cast<const T*>(out), static_cast<const T*>(dout), l, dl,
-                       static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), t_len, s_len, heads};
-  return int(launch_flash_bwd<T, HD>(p, batch, st));
+  const BwdParams<T> p{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                       static_cast<const uint8_t*>(mask), static_cast<const T*>(out), static_cast<const T*>(dout),
+                       static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<T*>(dq),
+                       static_cast<T*>(dk), static_cast<T*>(dv), t_len, s_len, heads};
+  return int(launch_flash_bwd<T, HD>(p, batch, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace kai0

@@ -20,6 +20,9 @@
 //     expected difference at the element type's precision); P·V accumulates in f32.
 //
 // Simple first: scalar f32 FMAs from shared memory, no tensor cores, no TMA.
+// The C entries run these kernels on f32 inputs only: bf16 inputs go to the
+// tensor-core kernels (flash_mqa_mma.cuh, flash_mhsa_mma.cuh), which share the
+// combine pass below.
 // A thread owns a 4x4 patch of the logit tile and 4 rows x ceil(H/16) columns of
 // the output accumulator. Shared-memory rows are padded to H+1 floats so that the
 // 16 keys a warp reads in one step fall in 16 different banks.
@@ -265,28 +268,19 @@ cudaError_t launch_flash_fwd(const FwdParams<T>& p, T* out, float* lse, int batc
   return cudaGetLastError();
 }
 
-// The C entry points' common body: element-type dispatch.
+// The C entry points' body for f32 inputs (bf16 runs on the tensor-core kernels).
 template <int HD>
 int flash_fwd_entry(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
                     void* part_acc, void* part_ml, int batch, int t_len, int s_len, int heads, int splits,
-                    int chunk, int is_bf16, void* stream) {
+                    int chunk, void* stream) {
   if (batch <= 0 || t_len <= 0 || s_len <= 0 || heads <= 0 || splits <= 0 || chunk <= 0 || chunk % kKeys != 0 ||
       (splits - 1) * chunk >= s_len)
     return int(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  float* pa = static_cast<float*>(part_acc);
-  float* pml = static_cast<float*>(part_ml);
-  float* l = static_cast<float*>(lse);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    const FwdParams<T> p{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), m, pa, pml,
-                         t_len, s_len, heads, chunk};
-    return int(launch_flash_fwd<T, HD>(p, static_cast<T*>(out), l, batch, splits, st));
-  }
-  const FwdParams<float> p{static_cast<const float*>(q), static_cast<const float*>(k),
-                           static_cast<const float*>(v), m, pa, pml, t_len, s_len, heads, chunk};
-  return int(launch_flash_fwd<float, HD>(p, static_cast<float*>(out), l, batch, splits, st));
+  const FwdParams<float> p{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+                           static_cast<const uint8_t*>(mask), static_cast<float*>(part_acc),
+                           static_cast<float*>(part_ml), t_len, s_len, heads, chunk};
+  return int(launch_flash_fwd<float, HD>(p, static_cast<float*>(out), static_cast<float*>(lse), batch, splits,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace kai0

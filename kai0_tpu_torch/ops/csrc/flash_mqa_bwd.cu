@@ -34,6 +34,6 @@ extern "C" int kai0_flash_mqa_bwd(const void* q, const void* k, const void* v, c
   if (is_bf16)
     return kai0::mqa_mma::bwd_entry<256>(q, k, v, mask, out, dout, lse, delta, dq, dk, dv, batch, t_len, s_len,
                                          heads, stream);
-  return kai0::flash_bwd_entry<256>(q, k, v, mask, out, dout, lse, delta, dq, dk, dv, batch, t_len, s_len, heads, 0,
+  return kai0::flash_bwd_entry<256>(q, k, v, mask, out, dout, lse, delta, dq, dk, dv, batch, t_len, s_len, heads,
                                     stream);
 }

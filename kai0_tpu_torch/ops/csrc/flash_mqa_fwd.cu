@@ -37,5 +37,5 @@ extern "C" int kai0_flash_mqa_fwd(const void* q, const void* k, const void* v, c
     return kai0::mqa_mma::fwd_entry<256>(q, k, v, mask, out, lse, part_acc, part_ml, batch, t_len, s_len, heads,
                                          splits, chunk, stream);
   return kai0::flash_fwd_entry<256>(q, k, v, mask, out, lse, part_acc, part_ml, batch, t_len, s_len, heads,
-                                    splits, chunk, 0, stream);
+                                    splits, chunk, stream);
 }

@@ -64,11 +64,6 @@ constexpr size_t kDqSmem = 6 * size_t(kTileBytes) + size_t(kProbBytes) + 2 * kMa
 __device__ __forceinline__ uint32_t swz(int r, int c) { return uint32_t(r * kRowBytes + ((c ^ (r & 7)) << 4)); }
 __device__ __forceinline__ uint32_t swz_p(int r, int c) { return uint32_t(r * 128 + ((c ^ (r & 7)) << 4)); }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // Rows [0, valid) of a 64 x 256 bf16 tile at src into the swizzled tile at dst; the other rows become zeros.
 template <int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int valid) {

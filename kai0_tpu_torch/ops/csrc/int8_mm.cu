@@ -63,7 +63,7 @@ constexpr int kBK = 64;        // contraction bytes of one stage
 constexpr int kStages = 3;
 constexpr int kThreads = 256;  // 8 warps: 2 along M, 4 along N; a warp owns (BM/2) x 32
 constexpr int kNI = 4;         // 8-column mma tiles of a warp
-constexpr int kMaxRank = 32;   // LoRA rank the epilogue's shared-memory staging takes
+constexpr int kRankSlice = 32;  // LoRA rank staged in shared memory at a time: the epilogue loops over slices
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -230,24 +230,26 @@ int8_mm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w, cons
   }
   asm volatile("cp.async.wait_group 0;\n" ::);
 
-  // LoRA operands of this tile, in shared memory (the ring is free now): u as [BM][ld] and b transposed as
-  // [BN][ld], the rank zero-padded to a multiple of 16 (the depth of one bf16 mma), 4 bytes of padding a row.
+  // LoRA operands in shared memory (the ring is free now), a slice of up to kRankSlice ranks at a time: u as
+  // [BM][ld] and b transposed as [BN][ld], the slice zero-padded to a multiple of 16 (the depth of one bf16 mma),
+  // 4 bytes of padding a row. A rank of at most kRankSlice is staged once; a larger one is staged again for
+  // every 16-row tile mi, so that only that tile's rank-r sums are live (their registers keep two blocks an SM).
   TOut* u_s = reinterpret_cast<TOut*>(smem);
-  const int rp = (rank + 15) & ~15;
-  const int ld = rp + 4 / static_cast<int>(sizeof(TOut));
-  TOut* bt_s = u_s + BM * (kMaxRank + 2);
-  if constexpr (LORA) {
-    __syncthreads();
+  TOut* bt_s = u_s + BM * (kRankSlice + 2);
+  int staged = -1;  // first rank of the slice in shared memory
+  auto stage = [&](int r0, int rs, int rp, int ld) {
+    __syncthreads();  // the ring, or the slice before, is no longer read
     for (int i = tid; i < BM * rp; i += kThreads) {
       const int r = i / rp, j = i - r * rp;
-      u_s[r * ld + j] = (m0 + r < m && j < rank) ? u[static_cast<int64_t>(m0 + r) * rank + j] : TOut(0.f);
+      u_s[r * ld + j] = (m0 + r < m && j < rs) ? u[static_cast<int64_t>(m0 + r) * rank + r0 + j] : TOut(0.f);
     }
     for (int i = tid; i < rp * kBN; i += kThreads) {
       const int j = i / kBN, col = i - j * kBN;  // consecutive threads read consecutive columns of b
-      bt_s[col * ld + j] = (n0 + col < n && j < rank) ? b[static_cast<int64_t>(j) * n + n0 + col] : TOut(0.f);
+      bt_s[col * ld + j] = (n0 + col < n && j < rs) ? b[static_cast<int64_t>(r0 + j) * n + n0 + col] : TOut(0.f);
     }
     __syncthreads();
-  }
+    staged = r0;
+  };
 
   // Epilogue. A group is a run of W consecutive output columns that one thread
   // holds: nt, the 2 columns of one mma tile; nn, 4 columns over an (even, odd)
@@ -255,44 +257,50 @@ int8_mm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w, cons
   constexpr int W = NN ? 4 : 2;
   constexpr int kGroups = kNI * 2 / W;
   const bool vec_ok = (n % W == 0);
-  // local column of this thread's element in mma tile ni (the rank-r term: forward orientation only)
-  auto tile_col = [&](int ni, int col_in_tile) { return warp_n * 32 + ni * 8 + col_in_tile; };
 #pragma unroll
   for (int mi = 0; mi < kMI; ++mi) {
     const int rl0 = warp_m * kWM + mi * 16 + g;  // this thread's rows of the tile: rl0 and rl0 + 8
-    float lt[kNI][4];
+    float lt[kNI][4];  // the rank-r term of this thread's outputs, in the layout of acc[mi]
     if constexpr (LORA) {
 #pragma unroll
       for (int ni = 0; ni < kNI; ++ni)
 #pragma unroll
         for (int e = 0; e < 4; ++e) lt[ni][e] = 0.f;
-      if constexpr (sizeof(TOut) == 2) {
-        // bf16: the rank-r product on the tensor cores (m16n8k16, f32 accumulation); its accumulator
-        // fragment has the layout of the int8 product's, so the sums line up element by element.
-        for (int kk = 0; kk < rp; kk += 16) {
-          uint32_t ua[4];
-          ua[0] = *reinterpret_cast<const uint32_t*>(u_s + rl0 * ld + kk + 2 * c4);
-          ua[1] = *reinterpret_cast<const uint32_t*>(u_s + (rl0 + 8) * ld + kk + 2 * c4);
-          ua[2] = *reinterpret_cast<const uint32_t*>(u_s + rl0 * ld + kk + 8 + 2 * c4);
-          ua[3] = *reinterpret_cast<const uint32_t*>(u_s + (rl0 + 8) * ld + kk + 8 + 2 * c4);
+      // Over the slices the sums keep their order: the mma steps of 16 ranks (bf16), r = 0, 1, ... (f32).
+      for (int r0 = 0; r0 < rank; r0 += kRankSlice) {
+        const int rs = min(kRankSlice, rank - r0);
+        const int rp = (rs + 15) & ~15;
+        const int ld = rp + 4 / static_cast<int>(sizeof(TOut));
+        if (staged != r0) stage(r0, rs, rp, ld);
+        if constexpr (sizeof(TOut) == 2) {
+          // bf16: the rank-r product on the tensor cores (m16n8k16, f32 accumulation); its accumulator
+          // fragment has the layout of the int8 product's, so the sums line up element by element.
+          for (int kk = 0; kk < rp; kk += 16) {
+            uint32_t ua[4];
+            ua[0] = *reinterpret_cast<const uint32_t*>(u_s + rl0 * ld + kk + 2 * c4);
+            ua[1] = *reinterpret_cast<const uint32_t*>(u_s + (rl0 + 8) * ld + kk + 2 * c4);
+            ua[2] = *reinterpret_cast<const uint32_t*>(u_s + rl0 * ld + kk + 8 + 2 * c4);
+            ua[3] = *reinterpret_cast<const uint32_t*>(u_s + (rl0 + 8) * ld + kk + 8 + 2 * c4);
 #pragma unroll
-          for (int ni = 0; ni < kNI; ++ni) {
-            const TOut* bcol = bt_s + tile_col(ni, g) * ld + kk + 2 * c4;
-            mma_bf16(lt[ni], ua, *reinterpret_cast<const uint32_t*>(bcol), *reinterpret_cast<const uint32_t*>(bcol + 8));
+            for (int ni = 0; ni < kNI; ++ni) {
+              const TOut* bcol = bt_s + (warp_n * 32 + ni * 8 + g) * ld + kk + 2 * c4;
+              mma_bf16(lt[ni], ua, *reinterpret_cast<const uint32_t*>(bcol),
+                       *reinterpret_cast<const uint32_t*>(bcol + 8));
+            }
           }
+        } else {
+          // f32: plain sums in the order r = 0, 1, ...
+#pragma unroll
+          for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const TOut* urow = u_s + (rl0 + 8 * (e >> 1)) * ld;
+              const TOut* bcol = bt_s + (warp_n * 32 + ni * 8 + 2 * c4 + (e & 1)) * ld;
+              float sum = lt[ni][e];
+              for (int r = 0; r < rs; ++r) sum = fmaf(to_f32(urow[r]), to_f32(bcol[r]), sum);
+              lt[ni][e] = sum;
+            }
         }
-      } else {
-        // f32: plain sums in the order r = 0, 1, ...
-#pragma unroll
-        for (int ni = 0; ni < kNI; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const TOut* urow = u_s + (rl0 + 8 * (e >> 1)) * ld;
-            const TOut* bcol = bt_s + tile_col(ni, 2 * c4 + (e & 1)) * ld;
-            float sum = 0.f;
-            for (int r = 0; r < rank; ++r) sum = fmaf(to_f32(urow[r]), to_f32(bcol[r]), sum);
-            lt[ni][e] = sum;
-          }
       }
     }
 #pragma unroll
@@ -353,7 +361,7 @@ int dispatch(const void* xq, const void* w, const void* sx, const void* sn, cons
              int m, int n, int kc, int rank, int is_bf16, void* stream) {
   static_assert(!(NN && LORA), "the rank-r term goes with the forward orientation only");
   if (m <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-  if (kc <= 0 || (LORA && (rank <= 0 || rank > kMaxRank))) return static_cast<int>(cudaErrorInvalidValue);
+  if (kc <= 0 || (LORA && rank <= 0)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch<NN, LORA, __nv_bfloat16>(xq, w, sx, sn, u, b, out, m, n, kc, rank, st)
                  : launch<NN, LORA, float>(xq, w, sx, sn, u, b, out, m, n, kc, rank, st);
@@ -368,7 +376,7 @@ extern "C" int kai0_int8_mm(const void* xq, const void* w, const void* sx, const
             : dispatch<true, false>(xq, w, sx, sn, nullptr, nullptr, out, m, n, kc, 0, out_bf16, stream);
 }
 
-// K4a. As K4b over w [n, kc] with sn required, plus u [m, rank] and b [rank, n] in out's type; rank <= 32.
+// K4a. As K4b over w [n, kc] with sn required, plus u [m, rank] and b [rank, n] in out's type; any rank > 0.
 extern "C" int kai0_int8_mm_lora(const void* xq, const void* w, const void* sx, const void* sn, const void* u,
                                  const void* b, void* out, int m, int n, int kc, int rank, int is_bf16,
                                  void* stream) {

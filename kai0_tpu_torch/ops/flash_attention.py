@@ -10,7 +10,8 @@ Counterpart of ``kai0_tpu/ops/pallas_attention.py``:
   choice of dtype);
 - ``flash_mhsa``: dense head-major attention for SigLIP, q/k/v [B,N,T,H], q
   pre-scaled (CUDA kernels ``csrc/flash_mhsa_fwd.cu`` and
-  ``csrc/flash_mhsa_bwd.cu``, head_dim 72).
+  ``csrc/flash_mhsa_bwd.cu``, head_dim 72; bf16 runs on the tensor-core
+  kernels of ``csrc/flash_mhsa_mma.cuh``, f32 on the scalar kernels).
 
 On CUDA tensors both go through a ``torch.autograd.Function`` (``FlashMHA``,
 ``FlashMHSA``, the counterpart of the custom VJPs at ``pallas_attention.py:
@@ -218,6 +219,7 @@ def _mhsa_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     _check_inputs(q, k, v)
     b, n, t, h = q.shape
     _require(h == _MHSA_HEAD_DIM, f"head_dim {h} (kernel built for {_MHSA_HEAD_DIM})")
+    _require(b * n <= 65535, f"{b * n} (batch, head) pairs (the kernels' grid takes at most 65535)")
     _require(k.shape == (b, n, k.shape[2], h) and v.shape == k.shape, f"k/v shape {tuple(k.shape)}")
 
 
@@ -226,14 +228,16 @@ def flash_mhsa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[t
     _mhsa_check(q, k, v)
     b, n, t, h = q.shape
     s = k.shape[2]
-    rows = b * n * t
-    splits, chunk = _splits(b * n * -(-t // _ROWS_PER_BLOCK), s, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((b, n, t), dtype=torch.float32, device=q.device)
-    part_acc, part_ml = _workspace(splits, rows, h, q.device)
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel takes the whole key axis and needs no workspace
+        splits, chunk, work = 1, -(-s // _KEYS_PER_TILE) * _KEYS_PER_TILE, ()
+    else:
+        splits, chunk = _splits(b * n * -(-t // _ROWS_PER_BLOCK), s, q.device)
+        work = _workspace(splits, b * n * t, h, q.device)
+    part_ptrs = tuple(x.data_ptr() for x in work) or (None, None)
     err = _build.load().kai0_flash_mhsa_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), *part_ptrs,
         b * n, t, s, h, splits, chunk, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

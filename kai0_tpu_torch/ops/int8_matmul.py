@@ -33,8 +33,6 @@ import torch
 
 from kai0_tpu_torch.ops import _build
 
-MAX_LORA_RANK = 32  # what the kernel's shared-memory staging of u and b takes
-
 # Kernel launches since the last ``reset_launches()``.
 LAUNCHES = {"int8_matmul": 0, "int8_matmul_lora": 0}
 
@@ -110,8 +108,8 @@ def int8_matmul_lora(xq, w, sx, sn, u, b, *, out_dtype=torch.bfloat16) -> torch.
     if xq.device.type == "cpu":
         return int8_matmul_lora_plain(xq, w, sx, sn, u, b, out_dtype=out_dtype)
     rank = u.shape[1]
-    if not 0 < rank <= MAX_LORA_RANK:
-        raise ValueError(f"int8_matmul_lora kernel takes a rank of 1..{MAX_LORA_RANK}, not {rank}")
+    if rank == 0:
+        raise ValueError("int8_matmul_lora kernel takes a rank of 1 or more, not 0")
     _check_kernel_operands(xq, w, sx, sn, u, b)
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     err = _build.load().kai0_int8_mm_lora(

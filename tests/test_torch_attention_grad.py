@@ -94,3 +94,31 @@ def test_flash_mhsa_grads_match_the_pallas_kernel(shape):
     plain = fa.flash_mhsa_bwd_plain(*map(torch.from_numpy, (q, k, v, dout)))
     for a, b in zip(plain, got, strict=True):
         np.testing.assert_array_equal(a.numpy(), b)
+
+
+def test_flash_mhsa_plain_bf16_matches_the_pallas_kernel():
+    """bf16 at SigLIP's shape: the plain ``flash_mhsa`` (which the card's tensor-core K2 is held to) against the
+    TPU kernel's forward and custom VJP in interpret mode, on the same bf16 inputs and dO.
+
+    Both take f32 logits and softmax, round P to bf16 before P·V and sum in f32; they differ in where the
+    backward rounds (the kernel rounds dS, autograd of the plain version rounds dP) and in summation order.
+    Tolerance, as the card's bf16 checks: out within 2e-2 max abs and 2e-3 mean abs; each gradient within
+    2e-2 x its max |grad|.
+    """
+    rng = np.random.default_rng(5)
+    shape = (1, 16, 256, 72)
+    q = (rng.standard_normal(shape) / np.sqrt(72)).astype(np.float32)
+    k, v, dout = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        want_out, vjp = jax.vjp(pallas_attention.flash_mhsa, *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+        want = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(dout, jnp.bfloat16))]
+    leaves = [torch.from_numpy(x).bfloat16().requires_grad_() for x in (q, k, v)]
+    out = attention.mhsa_dense_hm(*leaves)
+    out.backward(torch.from_numpy(dout).bfloat16())
+    assert out.dtype == torch.bfloat16
+    err = np.abs(out.detach().float().numpy() - np.asarray(want_out.astype(jnp.float32)))
+    assert err.max() <= 2e-2 and err.mean() <= 2e-3, (err.max(), err.mean())
+    for name, x, b in zip("qkv", leaves, want, strict=True):
+        assert x.grad.dtype == torch.bfloat16, name
+        scale = np.abs(b).max()
+        assert scale > 0 and np.abs(x.grad.float().numpy() - b).max() <= 2e-2 * scale, (name, scale)

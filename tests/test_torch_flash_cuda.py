@@ -6,8 +6,8 @@ without the repository's conftest:
     python -m pytest tests/test_torch_flash_cuda.py -m cuda --noconftest -q
 
 The ``cuda`` tests skip where no card is present. bf16 inputs of ``flash_mha``
-run on the tensor-core kernels (``csrc/flash_mqa_mma.cuh``), f32 inputs on the
-scalar ones. Tolerances, with unit-normal inputs and q scaled by
+and ``flash_mhsa`` run on the tensor-core kernels (``csrc/flash_mqa_mma.cuh``,
+``csrc/flash_mhsa_mma.cuh``), f32 inputs on the scalar ones. Tolerances, with unit-normal inputs and q scaled by
 head_dim**-0.5: forward, max abs 1e-4 in f32 (summation order); in bf16 max abs
 2e-2 and mean abs 2e-3 (the kernel rounds the unnormalised softmax weights to
 bf16, the plain version the normalised probabilities). Backward, against
@@ -230,6 +230,48 @@ def test_flash_mhsa_bwd_matches_autograd_of_plain(cuda, dtype, shape):
     got = fa.flash_mhsa_bwd(q, k, v, out, lse, dout)
     torch.cuda.synchronize()
     _assert_grads_close(got, fa.flash_mhsa_bwd_plain(q, k, v, dout), dtype)
+
+
+def _bf16_mhsa_case(b, n, t, s, device):
+    """bf16 head-major q (scaled), k, v and dO with T query rows against S keys."""
+    g = torch.Generator(device=device).manual_seed(100 * b + 10 * n + t + s)
+    q = (torch.randn(b, n, t, 72, generator=g, device=device) / 72**0.5).bfloat16()
+    k, v = (torch.randn(b, n, s, 72, generator=g, device=device).bfloat16() for _ in range(2))
+    dout = torch.randn(b, n, t, 72, generator=g, device=device).bfloat16()
+    return q, k, v, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,t,s", [(8, 16, 256, 256), (1, 2, 37, 37), (2, 3, 130, 65), (2, 3, 65, 130), (1, 1, 1, 3)])
+def test_bf16_tensor_core_mhsa_matches_plain(cuda, b, n, t, s):
+    """K2f and K2b in bf16 (the tensor-core kernels): the SigLIP shape at batch 8, row and key tiles that end
+    mid-tile, T != S both ways, and a single query row (whose dq is not zero: S > 1)."""
+    q, k, v, dout = _bf16_mhsa_case(b, n, t, s, cuda)
+    before = dict(fa.LAUNCHES)
+    out, lse = fa.flash_mhsa_fwd(q, k, v)
+    got = fa.flash_mhsa_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_mhsa"] == before["flash_mhsa"] + 1
+    assert fa.LAUNCHES["flash_mhsa_bwd"] == before["flash_mhsa_bwd"] + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16 and lse.shape == (b, n, t)
+    _assert_close(out, fa.flash_mhsa_plain(q, k, v), torch.bfloat16)
+    torch.testing.assert_close(lse, torch.logsumexp(torch.einsum("bnth,bnsh->bnts", q.float(), k.float()), -1),
+                               rtol=1e-5, atol=1e-4)
+    _assert_grads_close(got, fa.flash_mhsa_bwd_plain(q, k, v, dout), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_bf16_mhsa_backward_is_deterministic(cuda):
+    """No atomics: two backward calls on the same inputs give the same bits, and so do two forward calls."""
+    q, k, v, dout = _bf16_mhsa_case(6, 16, 256, 256, cuda)
+    out, lse = fa.flash_mhsa_fwd(q, k, v)
+    first = fa.flash_mhsa_bwd(q, k, v, out, lse, dout)
+    second = fa.flash_mhsa_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", first, second, strict=True):
+        assert torch.equal(a, b), f"d{name} differs between two calls"
+    again, lse_again = fa.flash_mhsa_fwd(q, k, v)
+    assert torch.equal(again, out) and torch.equal(lse_again, lse)
 
 
 @pytest.mark.cuda

@@ -81,7 +81,8 @@ def test_int8_matmul_kernel_is_bit_equal(cuda, out_dtype, nt, m, n, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,k,rank", [(50, 4096, 1024, 32), (968, 16384, 2048, 16), (968, 2048, 16384, 16),
-                                        (1600, 1024, 4096, 32), (70, 72, 48, 4), (129, 130, 32, 7)])
+                                        (1600, 1024, 4096, 32), (70, 72, 48, 4), (129, 130, 32, 7),
+                                        (300, 1024, 2048, 40), (968, 2048, 2048, 64), (129, 520, 64, 128)])
 def test_int8_matmul_lora_kernel_bf16_ulp(cuda, m, n, k, rank):
     xq, w, sx, sn, u, b = _operands(m, n, k, m + n + k + rank, cuda, rank)
     before = mm.LAUNCHES["int8_matmul_lora"]
@@ -98,8 +99,11 @@ def test_int8_matmul_lora_kernel_bf16_ulp(cuda, m, n, k, rank):
 
 
 @pytest.mark.cuda
-def test_int8_matmul_lora_kernel_f32(cuda):
-    xq, w, sx, sn, u, b = _operands(100, 4096, 2048, 3, cuda, 16, torch.float32)
+@pytest.mark.parametrize("m,n,k,rank,seed", [(100, 4096, 2048, 16, 3), (300, 1024, 2048, 40, 40),
+                                             (300, 1024, 2048, 64, 64), (300, 1024, 2048, 128, 128)])
+def test_int8_matmul_lora_kernel_f32(cuda, m, n, k, rank, seed):
+    """Ranks above 32 span several slices of the epilogue: the f32 sums run on across the slices."""
+    xq, w, sx, sn, u, b = _operands(m, n, k, seed, cuda, rank, torch.float32)
     out = mm.int8_matmul_lora(xq, w, sx, sn, u, b, out_dtype=torch.float32)
     ref = mm.int8_matmul_lora_plain(xq, w, sx, sn, u, b, out_dtype=torch.float32)
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
@@ -109,7 +113,7 @@ def test_int8_matmul_lora_kernel_f32(cuda):
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     xq, w, sx, sn, u, b = _operands(8, 16, 64, 0, cuda, 40)
     with pytest.raises(ValueError):
-        mm.int8_matmul_lora(xq, w, sx, sn, u, b)  # rank 40 > 32
+        mm.int8_matmul_lora(xq, w, sx, sn, u[:, :0], b[:0])  # rank 0
     with pytest.raises(ValueError):
         mm.int8_matmul(xq.T, w, sx, sn, nt=True)  # contraction mismatch
     with pytest.raises(ValueError):

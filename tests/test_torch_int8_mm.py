@@ -74,7 +74,7 @@ def test_plain_product_is_exact_where_f32_accumulation_is_not():
     assert torch.equal(got, want.expand(2, 3))
 
 
-@pytest.mark.parametrize("m,k,n,r", [(300, 257, 130, 16), (96, 2048, 512, 16), (64, 128, 128, 4)])
+@pytest.mark.parametrize("m,k,n,r", [(300, 257, 130, 16), (96, 2048, 512, 16), (64, 128, 128, 4), (96, 256, 130, 64)])
 def test_int8_matmul_lora_plain_matches_the_tpu_kernel_bf16(m, k, n, r):
     xq, w, sx, sn = _operands(m, k, n, seed=7)
     rng = np.random.default_rng(r)
