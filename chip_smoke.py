@@ -82,13 +82,18 @@ Phases, none of which catches an error (any failure exits non-zero):
     bound (the larger of the int8 operations over 1,979 TOP/s and the bytes over
     3.35 TB/s; bytes only for K5) and, for K4b and K4a, ``torch._int_mm``
     followed by the scaling (and the separate LoRA add), a yardstick the port
-    never calls.
+    never calls. The forward orientation reaches the ``wgmma`` kernel at every
+    row count above 64 and the split-contraction kernel at M = 50; the
+    backward's orientation the ``mma.sync`` tiles.
 11. int8 serving: the model of phase 4 with ``quantize_inference_tree`` applied
     serves the same 5 requests; per request 990 ``row_quant`` and 1188
     ``int8_matmul`` launches (18 layers x (1 prefill + 10 denoise steps) x 5
     row quantizations and 6 products), none of ``int8_matmul_lora``. The actions
     are compared with the bf16 model's on the same weights and noise, and the
-    difference printed (int8 perturbs the actions by design).
+    difference printed (int8 perturbs the actions by design). A sixth request
+    runs under torch.profiler: its 108 prefill products must run on the
+    ``wgmma`` kernel and its 1,080 denoise products on the split-contraction
+    kernel, none on the ``mma.sync`` tiles.
 12. The LoRA fine-tune over a frozen int8 base at full width, depth cut to 2,
     f32 activations, batch 2, fixed draws: the card (kernels) against the host
     CPU (plain versions) on the same codes. Card and host differ by f32
@@ -104,14 +109,21 @@ Phases, none of which catches an error (any failure exits non-zero):
     from the code). The frozen leaves, codes and scales must be bit-identical
     after the steps and the optimizer state must cover the trainable leaves
     only. A second run from the same seed must give identical losses; its last
-    step runs under torch.profiler.
+    step runs under torch.profiler, whose int8 kernels must be the ``wgmma``
+    kernel for every forward product (K4a, and K4b at the attention sites) and
+    the ``mma.sync`` tiles of the backward's orientation for every ``dx``.
+
+Build: ptxas's register and spill lines of every kernel are printed; the
+tensor-core attention kernels and the int8 kernels of the forward orientation
+must not spill.
 
 The line before the last is the kernels' JSON record: times in bf16, the
 attention kernels at phase 6's shapes (K1f/K1b at batch 32 and K2f/K2b at
 [96,16,256,72], with the batch-2 numbers under the same keys suffixed ``_b2``),
 the AdamW kernel at phase 7's, the int8 kernels at shapes phase 13 launches (K5
 on a [7744, 16384] bf16 chunk, K4a the gate/up product of that chunk, rank 64
-under keys suffixed ``_r64``, K4b its ``dx``);
+under keys suffixed ``_r64``, K4b its ``dx``, and K4b on the action expert's down in a denoise step, M = 50,
+under keys suffixed ``_m50``: int8 serving's split-contraction kernel);
 ``launches`` from the first 5-step run of the path that runs the kernel: phase
 9 for the attention and AdamW kernels, phase 13 for the int8 ones. The last
 line is ``{"ok": true, "device": {...}}``.
@@ -152,6 +164,9 @@ INT8_SITES = {
                     "down": (4096, 1024)}, 32),
 }
 
+# Kernels whose ptxas report must show no spills: the tensor-core attention kernels and the int8 kernels of the
+# forward orientation (int8_mm_wgmma.cuh).
+SPILL_FREE_KERNELS = ("mqa_mma", "mhsa_mma", "int8_mm_wgmma_kernel", "int8_mm_splitk_kernel")
 # The scalar-FMA attention kernels (flash_fwd.cuh, flash_bwd.cuh but its delta pass): f32 only.
 SCALAR_ATTENTION_KERNELS = ("flash_fwd_partial", "flash_fwd_combine", "flash_bwd_dkdv", "flash_bwd_dq")
 
@@ -405,6 +420,14 @@ def serve_int8(served) -> dict:
         actions.append(a)
         per_request.append(wall_ms)
     launches = _read_launches()
+    # One more request under the profiler: the prefill's products (M = 968) on the wgmma kernel, the denoise
+    # steps' (M = 50) on the split kernel, nothing on the mma.sync tiles.
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        again = policy.infer(obs, noise=noises[plan[0]])["actions"]
+        torch.cuda.synchronize()
+    _check(np.array_equal(again, actions[0]), "int8: the profiled request gave other actions")
+    wgmma, splitk, nn = _check_int8_orientations(_int8_kernels(prof), "profiled int8 request")
+    _check((wgmma, splitk, nn) == (18 * 6, 18 * 10 * 6, 0), f"int8 request: {wgmma} wgmma, {splitk} split, {nn} nn")
     for i in (1, 2, 3):
         _check(np.array_equal(actions[i], actions[0]), f"int8 request {i}: same noise, different actions")
     _check(not np.array_equal(actions[4], actions[0]), "int8: other noise gave the same actions")
@@ -707,8 +730,13 @@ def check_int8_kernels() -> dict:
                           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} int_mm_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
                           f"{2 * mm_m * mm_n * mm_k / ms / 1e9:.1f} TOP/s")
                     if (expert, site, which, m) == ("gemma_2b", "gate/up", "dx", INT8_CHUNK_ROWS):
-                        record["int8_matmul"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                                 "bound_by": bound_by, "library_ms": lib_ms}
+                        record.setdefault("int8_matmul", {}).update({
+                            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": lib_ms})
+                    if (expert, site, which, m) == ("gemma_300m", "down", "fwd", 50):  # a denoise step's product
+                        record.setdefault("int8_matmul", {}).update({
+                            "max_abs_err_m50": 0.0, "ms_m50": ms, "plain_ms_m50": plain_ms, "bound_ms_m50": bound_ms,
+                            "bound_by_m50": bound_by, "library_ms_m50": lib_ms})
                 if site not in ("gate/up", "down"):
                     continue
                 # K4a: the fused FFN's products with the rank-r term in the epilogue; at one shape also rank 64,
@@ -937,6 +965,45 @@ def _read_launches() -> dict:
     return {**fa.LAUNCHES, **adam_q8.LAUNCHES, **_int8_launches()}
 
 
+def _kernel_name(event_name: str) -> str:
+    """A kernel's name with its template arguments, without its namespace and parameters."""
+    name = event_name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("::")[-1]
+
+
+def _int8_kernels(prof) -> dict:
+    """(ms, count) by int8 product kernel of a profile."""
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "int8_mm" in e.name:
+            ms, count = kernels.get(_kernel_name(e.name), (0.0, 0))
+            kernels[_kernel_name(e.name)] = (ms + e.time_range.elapsed_us() / 1000, count + 1)
+    return kernels
+
+
+def _check_int8_orientations(kernels: dict, label: str) -> tuple[int, int, int]:
+    """Every nt product on the wgmma or split kernel, every nn product on the mma.sync tiles; launches of each.
+
+    The mma.sync kernel's second template argument is its orientation (``int8_mm_kernel<BM, NN, LORA, T>``);
+    the other two kernels compute nt only.
+    """
+    print(f"  int8 kernels of the {label}: " + "; ".join(
+        f"{k} {ms:.2f} ms x{count}" for k, (ms, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])))
+    counts = {"wgmma": 0, "splitk": 0, "mma.sync nn": 0}
+    for name, (_, count) in kernels.items():
+        if name.startswith("int8_mm_kernel<"):
+            _check(name.split("<")[1].split(",")[1].strip() == "true", f"{label}: an nt product ran on {name}")
+            counts["mma.sync nn"] += count
+        elif name.startswith("int8_mm_wgmma_kernel<"):
+            counts["wgmma"] += count
+        elif name.startswith("int8_mm_splitk_kernel<"):
+            counts["splitk"] += count
+        else:
+            _check(False, f"{label}: unknown int8 kernel {name}")
+    print(f"  int8 launches of the {label} by kernel: {counts}")
+    return counts["wgmma"], counts["splitk"], counts["mma.sync nn"]
+
+
 def _profile_families(prof) -> tuple[dict, float, dict]:
     """Device ms of one profiled step by kernel family, the summed device ms, and (ms, count) by attention kernel."""
     families, attention = {}, {}
@@ -1114,6 +1181,12 @@ def train(kind: str = "full") -> tuple[dict, list]:
         f"{kernel} {ms:.2f} ms x{count}" for kernel, (ms, count) in sorted(attention.items(), key=lambda kv: -kv[1][0])))
     scalar = [k for k in attention if any(s in k for s in SCALAR_ATTENTION_KERNELS)]
     _check(not scalar, f"the bf16 step launched the scalar attention kernels {scalar}")
+    if kind == "lora_int8":
+        # The forward products (K4a, and K4b at the attention sites twice: forward and recompute) are nt.
+        wgmma, splitk, nn = _check_int8_orientations(_int8_kernels(prof), "profiled step")
+        nt_k4b = 2 * 18 * 6
+        _check(wgmma == want["int8_matmul_lora"] + nt_k4b and splitk == 0 and nn == want["int8_matmul"] - nt_k4b,
+               f"int8 kernels of the profiled step: {wgmma} wgmma, {splitk} split, {nn} nn")
     return run_launches, runs[0]
 
 
@@ -1142,8 +1215,8 @@ def main() -> int:
             function = line.split("'")[1]
         elif "registers" in line or "spill" in line:
             print(f"  ptxas: {function}: {line.strip().removeprefix('ptxas info    : ')}")
-            _check(not any(k in function for k in ("mqa_mma", "mhsa_mma")) or " 0 bytes spill stores" in line
-                   or "spill" not in line, f"the tensor-core attention kernel {function} spills registers: {line.strip()}")
+            _check(not any(k in function for k in SPILL_FREE_KERNELS) or " 0 bytes spill stores" in line
+                   or "spill" not in line, f"the tensor-core kernel {function} spills registers: {line.strip()}")
 
     check_kernels()
     serve_launches, served = serve()

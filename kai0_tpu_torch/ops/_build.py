@@ -42,8 +42,10 @@ _SIGNATURES = {
     "kai0_row_quant": [_P] * 3 + [_I] * 3 + [_P],
     # xq, w, sx, sn (or null), out, m, n, k, nt, out_bf16, stream
     "kai0_int8_mm": [_P] * 5 + [_I] * 5 + [_P],
-    # xq, w, sx, sn, u, b, out, m, n, k, rank, nt, is_bf16, stream
+    # xq, w, sx, sn, u, b, out, m, n, k, rank, is_bf16, stream
     "kai0_int8_mm_lora": [_P] * 7 + [_I] * 5 + [_P],
+    # xq, w, sx, sn (or null), out, ws, counters, m, n, k, bn, splits, chunk, out_bf16, stream
+    "kai0_int8_mm_splitk": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

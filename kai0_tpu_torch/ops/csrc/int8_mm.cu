@@ -17,10 +17,14 @@
 // What bounds it on the H100: operations at the training shapes (M = 30,976
 // rows against weights of 2048 x 16384: 2 M N K int8 operations against M K +
 // N K + 2 M N bytes is far above the card's ~590 operations a byte), bytes of
-// the weight at the serving shapes (M = 50). This first version uses the
-// warp-level tensor-core instruction `mma.sync.m16n8k32.s8` rather than
-// `wgmma`: a block of 8 warps owns a 128 x 128 (or 64 x 128 for M <= 64) tile
-// of y, streams 64-byte slices of the contraction axis through a 3-stage
+// the weight at the serving shapes (M = 50). Three hand-written kernels, chosen
+// by shape (`launch`, `kai0_int8_mm_splitk`): the forward orientation at
+// M > 64 with 16-byte aligned rows runs on `wgmma` tiles fed by TMA, and K4b's
+// forward orientation at M <= 64 on a kernel that splits the contraction over
+// blocks (both in int8_mm_wgmma.cuh); the rest (`nn`, K4a at M <= 64, rows of
+// other widths) on the warp-level `mma.sync.m16n8k32.s8` kernel below: a block
+// of 8 warps owns a 128 x 128 (or 64 x 128 for M <= 64) tile of y, streams
+// 64-byte slices of the contraction axis through a 3-stage
 // `cp.async` ring in shared memory (16-byte chunks, XOR-swizzled so that
 // `ldmatrix` reads without bank conflicts), and keeps the int32 sums in
 // registers (64 a thread), so the accumulator never touches memory. Ragged
@@ -50,6 +54,7 @@
 // with `__fadd_rn` (no contraction into an FMA with the scaling). A library
 // product sums the r terms in another order, so K4a equals its plain version
 // up to isolated flips of one unit in the last place of the rank-r term.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,17 +82,17 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One 16-byte chunk of a row-major int8 matrix [rows, cols] (leading dimension
-// `cols`) into shared memory: `cp.async` when rows are 16-byte aligned, else
-// byte by byte; out of range reads as zero.
-__device__ __forceinline__ void load_chunk(int8_t* dst, const int8_t* base, int64_t row, int rows, int col, int cols,
-                                           bool aligned) {
+// One 16-byte chunk of row `row` of a row-major int8 matrix with leading dimension `ld` into shared memory,
+// columns [col, col + 16) masked to [0, col_end): `cp.async` when rows are 16-byte aligned, else byte by
+// byte; out of range reads as zero.
+__device__ __forceinline__ void load_chunk(int8_t* dst, const int8_t* base, int64_t row, int rows, int col, int col_end,
+                                           int ld, bool aligned) {
   if (aligned) {
-    const bool valid = row < rows && col < cols;
-    cp_async16(smem_u32(dst), valid ? base + row * cols + col : base, valid ? 16 : 0);
+    const bool valid = row < rows && col < col_end;
+    cp_async16(smem_u32(dst), valid ? base + row * ld + col : base, valid ? 16 : 0);
   } else {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) dst[j] = (row < rows && col + j < cols) ? base[row * cols + col + j] : int8_t(0);
+    for (int j = 0; j < 16; ++j) dst[j] = (row < rows && col + j < col_end) ? base[row * ld + col + j] : int8_t(0);
   }
 }
 
@@ -125,6 +130,9 @@ __device__ __forceinline__ void store_vals(TOut* p, const float (&v)[W]) {
 __device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
+// The `wgmma` kernel of nt at M > 64 and the split-contraction kernel of nt at M <= 64.
+#include "int8_mm_wgmma.cuh"
+
 // BM: rows of the block tile (64 or 128). NN: the weight is [C, N] (else [N, C]).
 // LORA: add the rank-r term (not with NN). TOut: type of y, and of u and b with LORA.
 template <int BM, bool NN, bool LORA, typename TOut>
@@ -151,17 +159,17 @@ int8_mm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w, cons
     const int k0 = kt * kBK;
     for (int i = tid; i < BM * (kBK / 16); i += kThreads) {
       const int r = i >> 2, c = i & 3;
-      load_chunk(a_s + swz64(r, c), xq, m0 + r, m, k0 + c * 16, kc, a_aligned);
+      load_chunk(a_s + swz64(r, c), xq, m0 + r, m, k0 + c * 16, kc, kc, a_aligned);
     }
     if constexpr (NN) {  // tile rows are contraction indices, 128 output columns wide
       for (int i = tid; i < kBK * (kBN / 16); i += kThreads) {
         const int r = i >> 3, c = i & 7;
-        load_chunk(b_s + swz128(r, c), w, k0 + r, kc, n0 + c * 16, n, b_aligned);
+        load_chunk(b_s + swz128(r, c), w, k0 + r, kc, n0 + c * 16, n, n, b_aligned);
       }
     } else {  // tile rows are output columns, 64 contraction bytes wide
       for (int i = tid; i < kBN * (kBK / 16); i += kThreads) {
         const int r = i >> 2, c = i & 3;
-        load_chunk(b_s + swz64(r, c), w, n0 + r, n, k0 + c * 16, kc, b_aligned);
+        load_chunk(b_s + swz64(r, c), w, n0 + r, n, k0 + c * 16, kc, kc, b_aligned);
       }
     }
   };
@@ -334,12 +342,87 @@ int8_mm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w, cons
   }
 }
 
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's entry-point query (no link
+// against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// TMA descriptor of a row-major int8 matrix [rows, cols] (cols a multiple of 16, base 16-byte aligned) read
+// in tiles of box_rows x 128 bytes, 128-byte swizzled; reads past the edges fill zeros. It holds the base
+// pointer, so it is encoded per call (on the host, about a microsecond).
+bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kWgBK), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Streaming multiprocessors of the current device, read once. A failed query leaves 0, an empty grid whose
+// launch then fails.
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int device = 0;
+    if (cudaGetDevice(&device) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  return sms;
+}
+
+template <int BN, bool LORA, typename TOut>
+int launch_wgmma(const void* xq, const void* w, const void* sx, const void* sn, const void* u, const void* b, void* out,
+                 int m, int n, int kc, int rank, cudaStream_t st) {
+  CUtensorMap tx, tw;
+  if (!tensor_map(&tx, xq, m, kc, kWgBM) || !tensor_map(&tw, w, n, kc, BN)) return static_cast<int>(cudaErrorInvalidValue);
+  using T = WgTile<BN, LORA, TOut>;
+  const auto kernel = int8_mm_wgmma_kernel<BN, LORA, TOut>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = ((m + kWgBM - 1) / kWgBM) * ((n + BN - 1) / BN);
+  kernel<<<min(tiles, sm_count()), kWgThreads, T::kSmem, st>>>(
+      tx, tw, static_cast<const float*>(sx), static_cast<const float*>(sn), static_cast<const TOut*>(u),
+      static_cast<const TOut*>(b), static_cast<TOut*>(out), m, n, kc, rank);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p, int ld) { return ld % 16 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Two hand-written kernels, chosen by shape: the forward orientation at M > 64 with 16-byte aligned rows
+// (every product the paths launch there) runs on the `wgmma` kernel; the rest (nn, M <= 64 for K4a, rows
+// of other widths) on the `mma.sync` tiles. K4b's nt at M <= 64 goes to the split kernel from the wrapper,
+// which owns its workspace (kai0_int8_mm_splitk).
 template <bool NN, bool LORA, typename TOut>
 int launch(const void* xq, const void* w, const void* sx, const void* sn, const void* u, const void* b, void* out,
            int m, int n, int kc, int rank, cudaStream_t st) {
-  const auto aligned = [](const void* p, int ld) { return ld % 16 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const int a_aligned = aligned(xq, kc);
-  const int b_aligned = aligned(w, NN ? n : kc);
+  const int a_aligned = aligned16(xq, kc);
+  const int b_aligned = aligned16(w, NN ? n : kc);
+  if (!NN && m > 64 && a_aligned && b_aligned) {
+    // 128 x 256 tiles where they fill a wave of the card (fewer bytes a product); 128 x 128 tiles, twice as
+    // many blocks, where they would not (the prefill's and the action expert's narrow products).
+    const int tiles = ((m + kWgBM - 1) / kWgBM) * ((n + 255) / 256);
+    return tiles >= sm_count() ? launch_wgmma<256, LORA, TOut>(xq, w, sx, sn, u, b, out, m, n, kc, rank, st)
+                               : launch_wgmma<128, LORA, TOut>(xq, w, sx, sn, u, b, out, m, n, kc, rank, st);
+  }
   const dim3 block(kThreads);
 #define KAI0_INT8_MM_LAUNCH(BM)                                                                                   \
   int8_mm_kernel<BM, NN, LORA, TOut><<<dim3((n + kBN - 1) / kBN, (m + BM - 1) / BM), block, 0, st>>>(             \
@@ -352,6 +435,16 @@ int launch(const void* xq, const void* w, const void* sx, const void* sn, const 
     KAI0_INT8_MM_LAUNCH(128);
   }
 #undef KAI0_INT8_MM_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN, typename TOut>
+int launch_splitk(const void* xq, const void* w, const void* sx, const void* sn, void* out, void* ws, void* counters,
+                  int m, int n, int kc, int splits, int chunk, cudaStream_t st) {
+  int8_mm_splitk_kernel<BN, TOut><<<dim3((n + BN - 1) / BN, splits), kSkThreads, 0, st>>>(
+      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w), static_cast<const float*>(sx),
+      static_cast<const float*>(sn), static_cast<TOut*>(out), static_cast<int*>(ws), static_cast<int*>(counters), m, n,
+      kc, chunk, splits, aligned16(xq, kc), aligned16(w, kc));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -381,4 +474,26 @@ extern "C" int kai0_int8_mm_lora(const void* xq, const void* w, const void* sx, 
                                  const void* b, void* out, int m, int n, int kc, int rank, int is_bf16,
                                  void* stream) {
   return dispatch<false, true>(xq, w, sx, sn, u, b, out, m, n, kc, rank, is_bf16, stream);
+}
+
+// K4b's nt at m <= 64, split over the contraction: `splits` ranges of `chunk` bytes (a multiple of 128) for
+// column tiles of `bn` (16, 32 or 64); ws int32 [m, n] and counters int32 [ceil(n / bn)], both zero, and left
+// zero for the next call.
+extern "C" int kai0_int8_mm_splitk(const void* xq, const void* w, const void* sx, const void* sn, void* out, void* ws,
+                                   void* counters, int m, int n, int kc, int bn, int splits, int chunk, int out_bf16,
+                                   void* stream) {
+  if (m <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  if (m > kSkBM || kc <= 0 || splits <= 0 || chunk <= 0 || chunk % kWgBK != 0 || static_cast<int64_t>(splits) * chunk < kc ||
+      static_cast<int64_t>(splits - 1) * chunk >= kc)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define KAI0_INT8_MM_SPLITK(BN)                                                                                \
+  if (bn == BN)                                                                                                \
+    return out_bf16 ? launch_splitk<BN, __nv_bfloat16>(xq, w, sx, sn, out, ws, counters, m, n, kc, splits, chunk, st) \
+                    : launch_splitk<BN, float>(xq, w, sx, sn, out, ws, counters, m, n, kc, splits, chunk, st);
+  KAI0_INT8_MM_SPLITK(64)
+  KAI0_INT8_MM_SPLITK(32)
+  KAI0_INT8_MM_SPLITK(16)
+#undef KAI0_INT8_MM_SPLITK
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,8 +18,15 @@ The port stores a quantized weight once, as ``[out, in]`` like a
 other), the backward's ``dx`` the other one, over the same tensor.
 
 On CUDA tensors the wrappers launch ``csrc/int8_mm.cu``; on CPU tensors they
-run the plain versions. K4b is bit-equal to its plain version; K4a sums the r
-terms in another order than a library product, so isolated outputs differ by
+run the plain versions. Which hand-written kernel a product takes follows its
+shape: the forward orientation at M > 64 with 16-byte aligned rows (every such
+product of the paths) runs on ``wgmma`` tiles fed by TMA; K4b's forward
+orientation at M <= 64 (int8 serving's denoise steps) on a kernel that splits
+the contraction over blocks to cover the card's SMs and sums the int32 partials
+exactly in a workspace this module keeps per device and width (all zero between
+calls; one stream a device at a time); the rest on ``mma.sync`` tiles. K4b is
+bit-equal to its plain version; K4a sums the r terms in another order than a
+library product, so isolated outputs differ by
 one unit in the last place of the rank-r term. The plain product accumulates in
 float64 on every device, which is exact here (every partial sum is an integer
 of magnitude <= 16384 · 127² < 2⁵³, so no addition rounds; an f32 accumulator
@@ -28,6 +35,8 @@ runs through BLAS on the CPU.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -40,6 +49,50 @@ LAUNCHES = {"int8_matmul": 0, "int8_matmul_lora": 0}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+SPLIT_K_MAX_ROWS = 64  # K4b's forward orientation up to this many rows splits the contraction
+_SPLIT_K_TILES = (64, 32, 16)  # column tiles of the split kernel, widest first
+_SPLIT_K_PIECE = 128  # contraction bytes: a split covers whole pieces, only the last may end short
+# (device, n) -> (int32 [SPLIT_K_MAX_ROWS * n] partial sums, int32 arrival counters a column tile), zero between calls
+_SPLIT_K_BUFFERS: dict[tuple[torch.device, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+@functools.lru_cache(maxsize=256)
+def _split_k_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int, int]:
+    """``(column tile, splits, chunk bytes)`` of K4b's forward orientation; ``(0, 1, k)`` above 64 rows.
+
+    The split kernel's grid is ``ceil(n / tile) x splits`` blocks, block ``s``
+    summing the contraction range ``[s * chunk, min(k, (s + 1) * chunk))``.
+    ``chunk`` is a whole number of 128-byte pieces; the splits are as many as
+    cover ``sms`` SMs together with the column tiles (at most one a piece), with
+    the widest tile that then reaches ``sms`` blocks, else the narrowest.
+    """
+    if m > SPLIT_K_MAX_ROWS:
+        return 0, 1, k
+    pieces = -(-k // _SPLIT_K_PIECE)
+    for tile in _SPLIT_K_TILES:
+        tiles = -(-n // tile)
+        per = max(1, pieces // min(pieces, -(-sms // tiles)))
+        splits = -(-pieces // per)
+        if tiles * splits >= sms:
+            break
+    return tile, splits, per * _SPLIT_K_PIECE
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _split_k_buffers(device: torch.device, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (device, n)
+    if key not in _SPLIT_K_BUFFERS:
+        _SPLIT_K_BUFFERS[key] = (
+            torch.zeros(SPLIT_K_MAX_ROWS * n, dtype=torch.int32, device=device),
+            torch.zeros(-(-n // min(_SPLIT_K_TILES)), dtype=torch.int32, device=device),
+        )
+    return _SPLIT_K_BUFFERS[key]
 
 
 def _scaled_product(xq, w, sx, sn, nt: bool) -> torch.Tensor:
@@ -86,10 +139,16 @@ def int8_matmul(xq, w, sx, sn=None, *, nt: bool = False, out_dtype=torch.bfloat1
         return int8_matmul_plain(xq, w, sx, sn, nt=nt, out_dtype=out_dtype)
     _check_kernel_operands(xq, w, sx, sn)
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
-    err = _build.load().kai0_int8_mm(
-        xq.data_ptr(), w.data_ptr(), sx.data_ptr(), None if sn is None else sn.data_ptr(), out.data_ptr(),
-        m, n, k, int(nt), int(out_dtype == torch.bfloat16), torch.cuda.current_stream(xq.device).cuda_stream,
-    )
+    args = (xq.data_ptr(), w.data_ptr(), sx.data_ptr(), None if sn is None else sn.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    if nt and m <= SPLIT_K_MAX_ROWS:
+        tile, splits, chunk = _split_k_plan(m, n, k, _sm_count(xq.device))
+        ws, counters = _split_k_buffers(xq.device, n)
+        err = _build.load().kai0_int8_mm_splitk(
+            *args, ws.data_ptr(), counters.data_ptr(), m, n, k, tile, splits, chunk, int(out_dtype == torch.bfloat16), stream,
+        )
+    else:
+        err = _build.load().kai0_int8_mm(*args, m, n, k, int(nt), int(out_dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul launch failed: cudaError_t {err}")
     LAUNCHES["int8_matmul"] += 1

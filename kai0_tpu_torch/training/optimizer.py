@@ -12,8 +12,9 @@ State: ``{"count": int, "mu": {name: moment}, "nu": {name: moment}}`` with a
 moment a tensor (f32 or bf16 storage) or, for ``state_dtype="int8"``, a dict
 ``{"q": codes, "s": block scales}`` updated in place by kernel K3
 (``kai0_tpu_torch.ops.adam_q8``, which also holds the q8 codec). The q8 blocks are cut over the port's
-per-layer tensors, JAX's over its stacked leaves, so q8 state does not
-interchange between the packages without re-encoding.
+per-layer tensors, JAX's over its stacked leaves, so q8 state crosses between
+the packages as f32 moments: ``q8_moments`` decodes the port's state per
+tensor, ``q8_state_from_moments`` encodes moments into it.
 
 Randomness: the bf16 stochastic rounding of nu and the q8 rounding draw from
 generators seeded by (tag, count, tensor index), so a step is deterministic
@@ -208,6 +209,31 @@ class AdamW:
             u = u + _scalar(self.weight_decay, p) * p  # optax.add_decayed_weights
             updates[name] = _scalar(-step_lr, u) * u  # optax.scale_by_learning_rate
         return updates, new_state
+
+
+def q8_moments(state: Mapping) -> dict[str, dict[str, torch.Tensor]]:
+    """The f32 moments ``{"mu": {name: tensor}, "nu": {name: tensor}}`` that a q8 state encodes, per tensor."""
+    return {key: {name: _adam_q8.q8_decode(p["q"], p["s"]) for name, p in state[key].items()} for key in ("mu", "nu")}
+
+
+def q8_state_from_moments(moments: Mapping[str, Mapping[str, torch.Tensor]], count: int) -> dict:
+    """A q8 optimizer state at ``count`` that encodes f32 moments per tensor (``nu`` non-negative).
+
+    Each value rounds to the nearer code of its block's log grid (the codec's
+    deterministic u = 0.5), so it decodes within half a grid step, a factor of
+    exp(7 ln 10 / 254) for mu and exp(7 ln 10 / 510) for nu, of the moment
+    (values below about 1e-7 of their block's absmax decode as 0, as in either
+    package's codec).
+    """
+    def encode(x: torch.Tensor, signed: bool) -> dict:
+        q, scale = _adam_q8.q8_encode(x.to(torch.float32), 0.5, signed=signed)
+        return {"q": q, "s": scale}
+
+    return {
+        "count": count,
+        "mu": {name: encode(x, True) for name, x in moments["mu"].items()},
+        "nu": {name: encode(x, False) for name, x in moments["nu"].items()},
+    }
 
 
 def apply_updates(params: Mapping[str, torch.Tensor], updates: Mapping[str, torch.Tensor]) -> None:

@@ -14,6 +14,11 @@ each by at most 2^-7 x max(|y|, |rank-r term|) (one bf16 step of the larger of
 the output and the term; where the two nearly cancel, a step of the term is
 many steps of the output); in f32 the difference is at most 1e-5 x max |y|
 (the r-term sum's rounding).
+
+The forward orientation runs on one of three kernels by shape (``wgmma`` tiles at
+M > 64 with 16-byte aligned rows, the split contraction for K4b at M <= 64, the
+``mma.sync`` tiles otherwise); the cases below reach each, and
+``test_kernel_choice_follows_the_shape`` reads from the profiler which one ran.
 """
 
 import pytest
@@ -118,3 +123,90 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         mm.int8_matmul(xq.T, w, sx, sn, nt=True)  # contraction mismatch
     with pytest.raises(ValueError):
         rq.row_quant(torch.zeros(4, 8, device=cuda, dtype=torch.float16))
+
+
+def _kernels_run(fn) -> list[str]:
+    """Names of the CUDA kernels that ``fn`` launches, from the profiler."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 7, 50, 64])
+@pytest.mark.parametrize("n,k", [(1000, 4100), (2050, 1040), (512, 1024), (33, 200)])
+def test_int8_matmul_split_k_is_bit_equal(cuda, out_dtype, m, n, k):
+    """K4b nt at M <= 64: splits of the contraction (K not a multiple of splits x 128, ragged N), exact sums."""
+    tile, splits, chunk = mm._split_k_plan(m, n, k, mm._sm_count(cuda))
+    assert tile in (16, 32, 64) and (splits - 1) * chunk < k <= splits * chunk
+    xq, w, sx, sn = _operands(m, n, k, m + n + k, cuda)
+    for scales in (sn, None):
+        out = mm.int8_matmul(xq, w, sx, scales, nt=True, out_dtype=out_dtype)
+        again = mm.int8_matmul(xq, w, sx, scales, nt=True, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        ref = mm.int8_matmul_plain(xq, w, sx, scales, nt=True, out_dtype=out_dtype)
+        assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+        assert torch.equal(out, again)
+    ws, counters = mm._SPLIT_K_BUFFERS[(xq.device, n)]
+    assert not ws.any() and not counters.any(), "the split kernel left its workspace dirty"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [65, 129, 968, 7744])
+@pytest.mark.parametrize("n", [1000, 2050])
+def test_int8_matmul_wgmma_is_bit_equal(cuda, out_dtype, m, n):
+    """K4b nt at M > 64 on the wgmma kernel: ragged M and N, K = 2048 + 16 (a partial last stage)."""
+    k = 2048 + 16
+    xq, w, sx, sn = _operands(m, n, k, m + n, cuda)
+    for scales in (sn, None):
+        out = mm.int8_matmul(xq, w, sx, scales, nt=True, out_dtype=out_dtype)
+        again = mm.int8_matmul(xq, w, sx, scales, nt=True, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        ref = mm.int8_matmul_plain(xq, w, sx, scales, nt=True, out_dtype=out_dtype)
+        assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+        assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [7, 16, 32, 40, 64])
+def test_int8_matmul_lora_wgmma(cuda, rank):
+    """K4a on the wgmma kernel at ranks of one, two and three 32-rank slices, bf16 and f32."""
+    m, n, k = 300, 1000, 2064
+    xq, w, sx, sn, u, b = _operands(m, n, k, rank, cuda, rank)
+    out = mm.int8_matmul_lora(xq, w, sx, sn, u, b)
+    assert torch.equal(out, mm.int8_matmul_lora(xq, w, sx, sn, u, b))
+    ref = mm.int8_matmul_lora_plain(xq, w, sx, sn, u, b)
+    diff = (out.float() - ref.float()).abs()
+    assert (diff <= 2.0**-7 * torch.maximum(ref.float().abs(), (u @ b).float().abs())).all(), diff.max().item()
+    assert (diff > 0).float().mean().item() <= 1e-3
+    xq, w, sx, sn, u, b = _operands(m, n, k, rank, cuda, rank, torch.float32)
+    out = mm.int8_matmul_lora(xq, w, sx, sn, u, b, out_dtype=torch.float32)
+    ref = mm.int8_matmul_lora_plain(xq, w, sx, sn, u, b, out_dtype=torch.float32)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_kernel_choice_follows_the_shape(cuda):
+    """nt at M > 64 with aligned rows: wgmma; K4b nt at M <= 64: the split kernel; unaligned rows and nn: mma.sync."""
+    xq, w, sx, sn, u, b = _operands(129, 256, 2048, 0, cuda, 16)
+    # operands made here: a copy inside a profiled call would show as a kernel of its own
+    x50, sx50, u50, g = xq[:50].contiguous(), sx[:50].contiguous(), u[:50].contiguous(), xq[:, :256].contiguous()
+    odd_x, odd_w = xq[:, :2040].contiguous(), w[:, :2040].contiguous()  # rows of 2040 bytes: not 16-byte aligned
+    cases = {
+        "int8_mm_wgmma_kernel": (lambda: mm.int8_matmul(xq, w, sx, sn, nt=True),
+                                 lambda: mm.int8_matmul_lora(xq, w, sx, sn, u, b)),
+        "int8_mm_splitk_kernel": (lambda: mm.int8_matmul(x50, w, sx50, sn, nt=True),),
+        "int8_mm_kernel<": (lambda: mm.int8_matmul(odd_x, odd_w, sx, sn, nt=True),
+                            lambda: mm.int8_matmul(g, w, sx, None, nt=False),
+                            lambda: mm.int8_matmul_lora(x50, w, sx50, sn, u50, b)),
+    }
+    for calls in cases.values():  # the first call of a shape may allocate the split kernel's workspace
+        for call in calls:
+            call()
+    for kernel, calls in cases.items():
+        for call in calls:
+            names = _kernels_run(call)
+            assert len(names) == 1 and kernel in names[0], (kernel, names)
