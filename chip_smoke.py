@@ -42,12 +42,16 @@ Phases, none of which catches an error (any failure exits non-zero):
    per gradient: max abs <= 1e-4 x max |grad| in f32, <= 2e-2 x max |grad| in
    bf16; in bf16 two backward calls must give the same bits. Times beside SDPA
    forward and forward+backward and the bound.
-7. The 8-bit AdamW kernel on a [2048, 16384] bf16 leaf (Gemma-2B's FFN) with
-   moments from two earlier steps. Deterministic mode: scales bit-equal, codes
-   within 1 on at most 1e-5 of the elements, update within 1e-6 relative.
-   Stochastic mode: the first moment decoded after each of 64 seeds, averaged,
-   is within 3e-3 of the exact f32 moment in mean signed relative error (the
-   log grid's own bias is at most cosh(step/2) - 1 = 2.0e-3).
+7. The 8-bit AdamW kernel. The per-tensor kernel on a [2048, 16384] bf16 leaf
+   (Gemma-2B's FFN) with moments from two earlier steps. Deterministic mode:
+   scales bit-equal, codes within 1 on at most 1e-5 of the elements, update
+   within 1e-6 relative. Stochastic mode: the first moment decoded after each
+   of 64 seeds, averaged, is within 3e-3 of the exact f32 moment in mean signed
+   relative error (the log grid's own bias is at most cosh(step/2) - 1 =
+   2.0e-3). Then the kernel the optimizer launches, one launch over every
+   tensor of the full-width π₀.₅ (811 tensors, bf16 gradients, moments from two
+   earlier steps): bit-equal to the per-tensor kernel in both modes, and held
+   to the plain version as above in deterministic mode.
 8. Gradients of the model at full width, depth cut to 2 (both Gemma experts
    and SigLIP), f32, batch 2, fixed noise, time and augmentation: the card
    (kernels) and the host CPU (plain versions) give every parameter gradient
@@ -60,7 +64,8 @@ Phases, none of which catches an error (any failure exits non-zero):
    AdamW moments, no EMA, per-block recompute, augmentation on, the default
    cosine schedule, on seeded synthetic batches. Per step: wall ms between synchronizes,
    samples/s, loss, grad_norm, peak GiB, launches (36/18 flash_mha
-   forward/backward, 54/27 flash_mhsa, one adam_q8 per parameter tensor).
+   forward/backward, 54/27 flash_mhsa, one adam_q8 over all 811 parameter
+   tensors).
    A second run from the same seed must give identical losses; its last step
    runs under torch.profiler for device time by kernel family, and must launch
    none of the scalar attention kernels (they serve f32 only).
@@ -82,9 +87,9 @@ Phases, none of which catches an error (any failure exits non-zero):
     bound (the larger of the int8 operations over 1,979 TOP/s and the bytes over
     3.35 TB/s; bytes only for K5) and, for K4b and K4a, ``torch._int_mm``
     followed by the scaling (and the separate LoRA add), a yardstick the port
-    never calls. The forward orientation reaches the ``wgmma`` kernel at every
-    row count above 64 and the split-contraction kernel at M = 50; the
-    backward's orientation the ``mma.sync`` tiles.
+    never calls. Both orientations reach the ``wgmma`` kernel at every row
+    count above 64; the forward orientation the split-contraction kernel at
+    M = 50 and the backward's the ``mma.sync`` tiles there.
 11. int8 serving: the model of phase 4 with ``quantize_inference_tree`` applied
     serves the same 5 requests; per request 990 ``row_quant`` and 1188
     ``int8_matmul`` launches (18 layers x (1 prefill + 10 denoise steps) x 5
@@ -110,17 +115,20 @@ Phases, none of which catches an error (any failure exits non-zero):
     after the steps and the optimizer state must cover the trainable leaves
     only. A second run from the same seed must give identical losses; its last
     step runs under torch.profiler, whose int8 kernels must be the ``wgmma``
-    kernel for every forward product (K4a, and K4b at the attention sites) and
-    the ``mma.sync`` tiles of the backward's orientation for every ``dx``.
+    kernel in the forward orientation for every forward product (K4a, and K4b
+    at the attention sites) and in the backward's orientation for every ``dx``.
 
 Build: ptxas's register and spill lines of every kernel are printed; the
-tensor-core attention kernels and the int8 kernels of the forward orientation
-must not spill.
+tensor-core attention kernels, the ``wgmma`` and split int8 kernels and the
+all-tensors AdamW kernel must not spill.
 
 The line before the last is the kernels' JSON record: times in bf16, the
 attention kernels at phase 6's shapes (K1f/K1b at batch 32 and K2f/K2b at
 [96,16,256,72], with the batch-2 numbers under the same keys suffixed ``_b2``),
-the AdamW kernel at phase 7's, the int8 kernels at shapes phase 13 launches (K5
+the AdamW kernel over all tensors of phase 7 (``ms`` its one launch on a table
+built beforehand, ``ms_call`` the call with the host's table, and
+``ms_per_tensor_kernel`` the 811 calls of the per-tensor kernel; its [2048, 16384]
+leaf under keys suffixed ``_leaf``), the int8 kernels at shapes phase 13 launches (K5
 on a [7744, 16384] bf16 chunk, K4a the gate/up product of that chunk, rank 64
 under keys suffixed ``_r64``, K4b its ``dx``, and K4b on the action expert's down in a denoise step, M = 50,
 under keys suffixed ``_m50``: int8 serving's split-contraction kernel);
@@ -164,9 +172,9 @@ INT8_SITES = {
                     "down": (4096, 1024)}, 32),
 }
 
-# Kernels whose ptxas report must show no spills: the tensor-core attention kernels and the int8 kernels of the
-# forward orientation (int8_mm_wgmma.cuh).
-SPILL_FREE_KERNELS = ("mqa_mma", "mhsa_mma", "int8_mm_wgmma_kernel", "int8_mm_splitk_kernel")
+# Kernels whose ptxas report must show no spills: the tensor-core attention kernels, the int8 kernels of
+# int8_mm_wgmma.cuh (both orientations) and the all-tensors AdamW kernel.
+SPILL_FREE_KERNELS = ("mqa_mma", "mhsa_mma", "int8_mm_wgmma_kernel", "int8_mm_splitk_kernel", "adam_q8_leaves_kernel")
 # The scalar-FMA attention kernels (flash_fwd.cuh, flash_bwd.cuh but its delta pass): f32 only.
 SCALAR_ATTENTION_KERNELS = ("flash_fwd_partial", "flash_fwd_combine", "flash_bwd_dkdv", "flash_bwd_dq")
 
@@ -426,8 +434,9 @@ def serve_int8(served) -> dict:
         again = policy.infer(obs, noise=noises[plan[0]])["actions"]
         torch.cuda.synchronize()
     _check(np.array_equal(again, actions[0]), "int8: the profiled request gave other actions")
-    wgmma, splitk, nn = _check_int8_orientations(_int8_kernels(prof), "profiled int8 request")
-    _check((wgmma, splitk, nn) == (18 * 6, 18 * 10 * 6, 0), f"int8 request: {wgmma} wgmma, {splitk} split, {nn} nn")
+    counts = _check_int8_orientations(_int8_kernels(prof), "profiled int8 request")
+    want = {"wgmma nt": 18 * 6, "wgmma nn": 0, "splitk nt": 18 * 10 * 6, "mma.sync nt": 0, "mma.sync nn": 0}
+    _check(counts == want, f"int8 request: launches by kernel {counts}, want {want}")
     for i in (1, 2, 3):
         _check(np.array_equal(actions[i], actions[0]), f"int8 request {i}: same noise, different actions")
     _check(not np.array_equal(actions[4], actions[0]), "int8: other noise gave the same actions")
@@ -604,8 +613,28 @@ def check_attention_training() -> dict:
     return record
 
 
+def _q8_nbytes(gs, states) -> int:
+    """Bytes that K3 must move: each gradient read, each update written, codes and scales read and written."""
+    return sum(2 * _nbytes(g) + 2 * _nbytes(*st) for g, st in zip(gs, states, strict=True))
+
+
+def _check_q8_against_plain(out, state, ref, ref_state, label) -> tuple[float, float, list[int]]:
+    """Deterministic mode: update within 1e-6 relative, scales equal, codes within 1; (max abs err, relative err,
+    codes of mu and of nu that differ). The caller holds each count to at most 1e-5 of the elements."""
+    rel = ((out.float() - ref.float()).abs() / ref.float().abs().clamp_min(1e-30)).max().item()
+    _check(rel <= 1e-6, f"{label}: update relative error {rel}")
+    _check(torch.equal(state[1], ref_state[1]) and torch.equal(state[3], ref_state[3]), f"{label}: scales differ")
+    flips = []
+    for i in (0, 2):
+        diff = (state[i].int() - ref_state[i].int()).abs()
+        _check(diff.max().item() <= 1, f"{label}: codes: max diff {diff.max().item()}")
+        flips.append(int((diff > 0).sum().item()))
+    return (out.float() - ref.float()).abs().max().item(), rel, flips
+
+
 def check_adam_q8() -> dict:
-    """Phase 7: K3 on a Gemma-2B FFN leaf against its plain version."""
+    """Phase 7: K3 on a Gemma-2B FFN leaf, then over every tensor of the full-width model, against its references."""
+    from kai0_tpu_torch.models.pi0 import Pi0, Pi0Config
     from kai0_tpu_torch.ops import adam_q8 as q8
 
     shape, b1, b2, a, b = (2048, 16384), 0.9, 0.95, 1.7, 2e-8
@@ -623,14 +652,8 @@ def check_adam_q8() -> dict:
     out = q8.adam_q8_leaf(g, *k_state, a, b, 3, b1=b1, b2=b2, deterministic=True)
     ref = q8.adam_q8_leaf_plain(g, *p_state, a, b, 3, b1=b1, b2=b2, deterministic=True)
     torch.cuda.synchronize()
-    rel = ((out.float() - ref.float()).abs() / ref.float().abs().clamp_min(1e-30)).max().item()
-    max_err = (out.float() - ref.float()).abs().max().item()
-    _check(rel <= 1e-6, f"adam_q8 update relative error {rel}")
-    _check(torch.equal(k_state[1], p_state[1]) and torch.equal(k_state[3], p_state[3]), "adam_q8 scales differ")
-    for i in (0, 2):
-        diff = (k_state[i].int() - p_state[i].int()).abs()
-        frac = (diff > 0).float().mean().item()
-        _check(diff.max().item() <= 1 and frac <= 1e-5, f"adam_q8 codes: max diff {diff.max().item()}, share {frac}")
+    max_err, rel, flips = _check_q8_against_plain(out, k_state, ref, p_state, "adam_q8 [2048,16384]")
+    _check(max(flips) <= 1e-5 * g.numel(), f"adam_q8 [2048,16384]: {flips} codes of mu, nu differ")
 
     exact_m = b1 * q8.q8_decode(mq, ms) + (1 - b1) * g.float()
     mean_m = torch.zeros_like(exact_m)
@@ -644,14 +667,83 @@ def check_adam_q8() -> dict:
 
     work = [x.clone() for x in state]  # timed runs keep updating this copy in place: the same work each time
     kernel_ms = _cuda_ms(lambda: q8.adam_q8_leaf(g, *work, a, b, 3, b1=b1, b2=b2), runs=10)
+    leaves_ms = _cuda_ms(lambda: q8.adam_q8_leaves([g], *([x] for x in work), a, b, [3], b1=b1, b2=b2), runs=10)
     plain_ms = _cuda_ms(lambda: q8.adam_q8_leaf_plain(g, *work, a, b, 3, b1=b1, b2=b2, deterministic=False), runs=5)
-    nbytes = _nbytes(g, out) + 2 * _nbytes(mq, vq, ms, vs)  # g read, update written, codes and scales read and written
+    nbytes = _q8_nbytes([g], [state])
     bound_ms, bound_by = _bound(Q8_OPS_PER_ELEMENT * g.numel(), nbytes, torch.float32)
     print(f"kernel adam_q8 [2048,16384] bf16: update max_abs_err={max_err:.3e} (relative {rel:.3e}), "
-          f"stochastic mean relative bias over 64 seeds={bias:.3e}; kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={bound_ms:.4f} ({bound_by}, {nbytes / 1e6:.1f} MB)")
-    return {"adam_q8": {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None}}
+          f"stochastic mean relative bias over 64 seeds={bias:.3e}; kernel_ms={kernel_ms:.4f} (per-tensor kernel), "
+          f"{leaves_ms:.4f} (all-tensors kernel on this tensor) plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+          f"({bound_by}, {nbytes / 1e6:.1f} MB)")
+    record = {"max_abs_err_leaf": max_err, "ms_leaf": leaves_ms, "ms_leaf_per_tensor_kernel": kernel_ms,
+              "plain_ms_leaf": plain_ms, "bound_ms_leaf": bound_ms, "bound_by_leaf": bound_by}
+    del g, state, work, k_state, p_state, out, ref, exact_m, mean_m
+    torch.cuda.empty_cache()
+
+    # Every tensor of the full-width model in one launch, as the full fine-tune's optimizer calls it.
+    shapes = [tuple(p.shape) for p in Pi0(Pi0Config(pi05=True), device="meta", param_dtype=torch.bfloat16).parameters()]
+    gs = [(torch.randn(s, generator=gen, device="cuda") * 1e-3).bfloat16() for s in shapes]
+    states = [[torch.zeros(s, dtype=torch.int8, device="cuda"), torch.zeros(q8.num_blocks(g.numel()), device="cuda"),
+               torch.zeros(s, dtype=torch.uint8, device="cuda"), torch.zeros(q8.num_blocks(g.numel()), device="cuda")]
+              for s, g in zip(shapes, gs, strict=True)]
+
+    def cols(sts):
+        return [[st[i] for st in sts] for i in range(4)]
+
+    for seed in (1, 2):  # two earlier steps put every code and scale in use
+        q8.adam_q8_leaves(gs, *cols(states), a, b, [seed + i for i in range(len(gs))], b1=b1, b2=b2)
+    gs = [(torch.randn(s, generator=gen, device="cuda") * 1e-3).bfloat16() for s in shapes]
+    seeds = torch.randint(0, 2**31 - 1, (len(gs),), generator=gen, device="cuda").tolist()
+    elements = sum(g.numel() for g in gs)
+    for deterministic in (True, False):
+        k_states = [[x.clone() for x in st] for st in states]
+        outs = q8.adam_q8_leaves(gs, *cols(k_states), a, b, seeds, b1=b1, b2=b2, deterministic=deterministic)
+        worst, flips = 0.0, [0, 0]
+        for g, st, k_st, out, seed in zip(gs, states, k_states, outs, seeds, strict=True):
+            ref_st = [x.clone() for x in st]
+            ref = q8.adam_q8_leaf(g, *ref_st, a, b, seed, b1=b1, b2=b2, deterministic=deterministic)
+            _check(torch.equal(out, ref) and all(torch.equal(x, y) for x, y in zip(k_st, ref_st, strict=True)),
+                   f"adam_q8 over all tensors: {tuple(g.shape)} differs from the per-tensor kernel ({deterministic=})")
+            if deterministic:
+                ref_st = [x.clone() for x in st]
+                ref = q8.adam_q8_leaf_plain(g, *ref_st, a, b, seed, b1=b1, b2=b2, deterministic=True)
+                err, _, n = _check_q8_against_plain(out, k_st, ref, ref_st, f"adam_q8 over all tensors {tuple(g.shape)}")
+                worst, flips = max(worst, err), [f + k for f, k in zip(flips, n, strict=True)]
+        del k_states, outs
+        if deterministic:
+            _check(max(flips) <= 1e-5 * elements, f"adam_q8 over all tensors: {flips} codes of mu, nu differ from plain")
+            all_max_err, all_flips = worst, flips
+    torch.cuda.synchronize()
+    work = [[x.clone() for x in st] for st in states]
+
+    def all_tensors():
+        return q8.adam_q8_leaves(gs, *cols(work), a, b, seeds, b1=b1, b2=b2)
+
+    def per_tensor():
+        return [q8.adam_q8_leaf(g, *st, a, b, s, b1=b1, b2=b2) for g, st, s in zip(gs, work, seeds, strict=True)]
+
+    # The call's events include the host's table of 811 tensors; the kernel's own time is that of its launch on a
+    # table built beforehand.
+    outs = [torch.empty_like(g) for g in gs]
+    table, blocks = q8.leaves_table(gs, *cols(work), outs, seeds)
+    step_ms = _cuda_ms(lambda: q8.launch_leaves(table, blocks, a, b, b1=b1, b2=b2), runs=10)
+    call_ms, per_tensor_ms = _cuda_ms(all_tensors, runs=10), _cuda_ms(per_tensor, runs=5)
+    del outs, table
+    step_plain_ms = _cuda_ms(lambda: q8.adam_q8_leaves_plain(gs, *cols(work), a, b, seeds, b1=b1, b2=b2,
+                                                             deterministic=False), runs=1)
+    nbytes = _q8_nbytes(gs, states)
+    bound_ms, bound_by = _bound(Q8_OPS_PER_ELEMENT * elements, nbytes, torch.float32)
+    print(f"kernel adam_q8 over all {len(gs)} tensors of the full-width model ({elements / 1e9:.3f}B elements, bf16): "
+          f"bit-equal to the per-tensor kernel in both modes; against the plain version update max_abs_err="
+          f"{all_max_err:.3e}, {all_flips} codes of mu, nu (of {elements} each) one step apart; kernel_ms={step_ms:.4f} (the "
+          f"launch; the call with its host table {call_ms:.4f}) per_tensor_kernel_ms={per_tensor_ms:.4f} ({len(gs)} calls) "
+          f"plain_ms={step_plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, {nbytes / 1e9:.2f} GB)")
+    record.update({"max_abs_err": all_max_err, "ms": step_ms, "ms_call": call_ms,
+                   "ms_per_tensor_kernel": per_tensor_ms,
+                   "plain_ms": step_plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    del gs, states, work
+    torch.cuda.empty_cache()
+    return {"adam_q8": record}
 
 
 def _int8_bound(m: int, n: int, k: int, nbytes: int, rank: int = 0) -> tuple[float, str]:
@@ -981,27 +1073,24 @@ def _int8_kernels(prof) -> dict:
     return kernels
 
 
-def _check_int8_orientations(kernels: dict, label: str) -> tuple[int, int, int]:
-    """Every nt product on the wgmma or split kernel, every nn product on the mma.sync tiles; launches of each.
+def _check_int8_orientations(kernels: dict, label: str) -> dict:
+    """Launches of the int8 product kernels of a profile by kernel and orientation.
 
-    The mma.sync kernel's second template argument is its orientation (``int8_mm_kernel<BM, NN, LORA, T>``);
-    the other two kernels compute nt only.
+    The second template argument of the wgmma and the mma.sync kernels is their orientation
+    (``int8_mm_wgmma_kernel<BN, NN, LORA, T>``, ``int8_mm_kernel<BM, NN, LORA, T>``); the split kernel computes nt
+    only.
     """
     print(f"  int8 kernels of the {label}: " + "; ".join(
         f"{k} {ms:.2f} ms x{count}" for k, (ms, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])))
-    counts = {"wgmma": 0, "splitk": 0, "mma.sync nn": 0}
+    counts = {"wgmma nt": 0, "wgmma nn": 0, "splitk nt": 0, "mma.sync nt": 0, "mma.sync nn": 0}
     for name, (_, count) in kernels.items():
-        if name.startswith("int8_mm_kernel<"):
-            _check(name.split("<")[1].split(",")[1].strip() == "true", f"{label}: an nt product ran on {name}")
-            counts["mma.sync nn"] += count
-        elif name.startswith("int8_mm_wgmma_kernel<"):
-            counts["wgmma"] += count
-        elif name.startswith("int8_mm_splitk_kernel<"):
-            counts["splitk"] += count
-        else:
-            _check(False, f"{label}: unknown int8 kernel {name}")
+        kernel = {"int8_mm_wgmma_kernel": "wgmma", "int8_mm_splitk_kernel": "splitk", "int8_mm_kernel": "mma.sync"}.get(
+            name.split("<")[0])
+        _check(kernel is not None, f"{label}: unknown int8 kernel {name}")
+        nn = kernel != "splitk" and name.split("<")[1].split(",")[1].strip() == "true"
+        counts[f"{kernel} {'nn' if nn else 'nt'}"] += count
     print(f"  int8 launches of the {label} by kernel: {counts}")
-    return counts["wgmma"], counts["splitk"], counts["mma.sync nn"]
+    return counts
 
 
 def _profile_families(prof) -> tuple[dict, float, dict]:
@@ -1067,7 +1156,7 @@ def train(kind: str = "full") -> tuple[dict, list]:
     ``kind="lora_int8"``: LoRA over a frozen int8 base (f32 trainable leaves, bf16 AdamW moments).
     """
     from kai0_tpu_torch.models.pi0 import Pi0, Pi0Config
-    from kai0_tpu_torch.ops import quant
+    from kai0_tpu_torch.ops import adam_q8, quant
     from kai0_tpu_torch.training import optimizer, train_lib
 
     attention = {"flash_mha": 36, "flash_mha_bwd": 18, "flash_mhsa": 54, "flash_mhsa_bwd": 27}
@@ -1100,7 +1189,8 @@ def train(kind: str = "full") -> tuple[dict, list]:
         n_tensors = len(state.params)
         trainable = {k for k, p in state.params.items() if p.requires_grad}
         if kind == "full":
-            want = {**attention, "adam_q8": n_tensors, "row_quant": 0, "int8_matmul": 0, "int8_matmul_lora": 0}
+            # one launch of the 8-bit AdamW kernel a step, over every tensor
+            want = {**attention, "adam_q8": 1, "row_quant": 0, "int8_matmul": 0, "int8_matmul_lora": 0}
         else:
             want = {**attention, "adam_q8": 0, **_lora_int8_step_launches(TRAIN_BATCH)}
             frozen_before = {k: v.clone() for k, v in model.state_dict().items() if k not in trainable}
@@ -1121,7 +1211,7 @@ def train(kind: str = "full") -> tuple[dict, list]:
         _reset_launches()
         for step, batch in enumerate(batches):
             profile = run == 1 and step == TRAIN_STEPS - 1
-            before = _read_launches()
+            before, leaves_before = _read_launches(), adam_q8.LEAVES["adam_q8"]
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -1146,6 +1236,8 @@ def train(kind: str = "full") -> tuple[dict, list]:
                   f"peak_mem_gib={peak:.3f} launches={launches}")
             _check(np.isfinite(loss) and np.isfinite(grad_norm) and grad_norm > 0, f"step {step}: loss {loss}, norm {grad_norm}")
             _check(launches == want, f"step {step}: launches {launches}, want {want}")
+            leaves = adam_q8.LEAVES["adam_q8"] - leaves_before
+            _check(leaves == (n_tensors if kind == "full" else 0), f"step {step}: adam_q8 updated {leaves} tensors")
             if step == 0 and kind == "full":
                 # Every tensor but the 7 the loss cannot reach (Gemma-2B's last layer past its K/V, its final norm).
                 moved = [sum(bool(m["q"].any()) for m in state.opt_state[key].values()) for key in ("mu", "nu")]
@@ -1182,11 +1274,13 @@ def train(kind: str = "full") -> tuple[dict, list]:
     scalar = [k for k in attention if any(s in k for s in SCALAR_ATTENTION_KERNELS)]
     _check(not scalar, f"the bf16 step launched the scalar attention kernels {scalar}")
     if kind == "lora_int8":
-        # The forward products (K4a, and K4b at the attention sites twice: forward and recompute) are nt.
-        wgmma, splitk, nn = _check_int8_orientations(_int8_kernels(prof), "profiled step")
+        # The forward products (K4a, and K4b at the attention sites twice: forward and recompute) are nt, every
+        # other K4b product a dx (nn); all on the wgmma kernel.
+        counts = _check_int8_orientations(_int8_kernels(prof), "profiled step")
         nt_k4b = 2 * 18 * 6
-        _check(wgmma == want["int8_matmul_lora"] + nt_k4b and splitk == 0 and nn == want["int8_matmul"] - nt_k4b,
-               f"int8 kernels of the profiled step: {wgmma} wgmma, {splitk} split, {nn} nn")
+        expected = {"wgmma nt": want["int8_matmul_lora"] + nt_k4b, "wgmma nn": want["int8_matmul"] - nt_k4b,
+                    "splitk nt": 0, "mma.sync nt": 0, "mma.sync nn": 0}
+        _check(counts == expected, f"int8 kernels of the profiled step: {counts}, want {expected}")
     return run_launches, runs[0]
 
 

@@ -38,6 +38,8 @@ _SIGNATURES = {
     "kai0_flash_mhsa_bwd": [_P] * 10 + [_I] * 5 + [_P],
     # g, mq, ms, vq, vs, out, n, b1, 1-b1, b2, 1-b2, a, b, step_s, step_u, seed, deterministic, is_bf16, stream
     "kai0_adam_q8": [_P] * 6 + [ctypes.c_longlong] + [_F] * 8 + [ctypes.c_uint, _I, _I, _P],
+    # table, leaves, blocks, b1, 1-b1, b2, 1-b2, a, b, step_s, step_u, deterministic, stream
+    "kai0_adam_q8_leaves": [_P, _I, _I] + [_F] * 8 + [_I, _P],
     # x, xq, sx, m, k, is_bf16, stream
     "kai0_row_quant": [_P] * 3 + [_I] * 3 + [_P],
     # xq, w, sx, sn (or null), out, m, n, k, nt, out_bf16, stream

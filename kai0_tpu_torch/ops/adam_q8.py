@@ -11,8 +11,12 @@ step of ``7·ln10/levels`` in log magnitude below the scale, code 0 exact zero.
 the update ``a·m/(sqrt(v)+b)`` in g's dtype and re-encodes the new moments
 with stochastic rounding in the log-index domain. It updates the codes and
 scales **in place** (they are the optimizer state; this saves a copy of it).
-On a CUDA tensor it launches ``csrc/adam_q8.cu``; on a CPU tensor it runs
-``adam_q8_leaf_plain``, which does the same operations in the same order.
+On a CUDA tensor it launches ``csrc/adam_q8.cu``'s ``adam_q8_kernel``; on a
+CPU tensor it runs ``adam_q8_leaf_plain``, which does the same operations in
+the same order. ``adam_q8_leaves`` does the same for every tensor of a step
+in one launch of ``adam_q8_leaves_kernel`` (the optimizer's path), from a
+table of the tensors built by ``leaf_table``; its plain version is a loop of
+``adam_q8_leaf_plain``.
 
 The rounding draws u from Philox-4x32-10 keyed by (seed, 0), counter
 (block·256 + t, e // 4, moment, 0) for element ``e·256 + t`` of a block, lane
@@ -23,6 +27,7 @@ Every tensor goes through the kernel, its tail block masked.
 
 from __future__ import annotations
 
+from collections.abc import Sequence
 import math
 
 import numpy as np
@@ -36,12 +41,14 @@ LEVELS_S = 127.0  # signed mu codes
 LEVELS_U = 255.0  # unsigned nu codes
 DECADES = 7.0
 
-# Kernel launches since the last ``reset_launches()``.
+# Kernel launches since the last ``reset_launches()``, and the tensors those launches updated.
 LAUNCHES = {"adam_q8": 0}
+LEAVES = {"adam_q8": 0}
 
 
 def reset_launches() -> None:
     LAUNCHES["adam_q8"] = 0
+    LEAVES["adam_q8"] = 0
 
 
 def _step(levels: float) -> float:
@@ -198,4 +205,92 @@ def adam_q8_leaf(g, mq, ms, vq, vs, a: float, b: float, seed: int, *, b1: float,
     if err != 0:
         raise RuntimeError(f"adam_q8 launch failed: cudaError_t {err}")
     LAUNCHES["adam_q8"] += 1
+    LEAVES["adam_q8"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The AdamW step of every tensor at once
+# ---------------------------------------------------------------------------
+
+def leaf_table(numels: Sequence[int]) -> tuple[list[int], int]:
+    """The first block of each tensor among all tensors' 2048-element blocks (prefix sums), and the total."""
+    firsts, total = [], 0
+    for n in numels:
+        if n <= 0:
+            raise ValueError(f"adam_q8 takes tensors of at least one element, not {n}")
+        firsts.append(total)
+        total += num_blocks(n)
+    return firsts, total
+
+
+def adam_q8_leaves_plain(gs, mqs, mss, vqs, vss, a: float, b: float, seeds, *, b1: float, b2: float,
+                         deterministic: bool, out=None) -> list[torch.Tensor]:
+    """The all-tensors kernel's plain version: ``adam_q8_leaf_plain`` on each tensor with its seed."""
+    updates = [
+        adam_q8_leaf_plain(g, mq, ms, vq, vs, a, b, seed, b1=b1, b2=b2, deterministic=deterministic)
+        for g, mq, ms, vq, vs, seed in zip(gs, mqs, mss, vqs, vss, seeds, strict=True)
+    ]
+    if out is None:
+        return updates
+    for o, u in zip(out, updates, strict=True):
+        o.copy_(u)
+    return list(out)
+
+
+def adam_q8_leaves(gs, mqs, mss, vqs, vss, a: float, b: float, seeds, *, b1: float, b2: float,
+                   deterministic: bool = False, out=None) -> list[torch.Tensor]:
+    """``adam_q8_leaf`` over every tensor of a step: one launch of K3 on CUDA tensors, the plain loop on CPU tensors.
+
+    ``gs``, ``mqs``, ``mss``, ``vqs``, ``vss`` and ``seeds`` are sequences with
+    one entry a tensor, as ``adam_q8_leaf`` takes them; the codes and scales are
+    updated in place. ``out``: tensors of the gradients' shapes and dtypes to
+    write the updates into (they may be the gradients themselves), else new ones.
+    Returns the updates.
+    """
+    gs = list(gs)
+    if not gs:
+        return []
+    if gs[0].device.type == "cpu":
+        return adam_q8_leaves_plain(gs, mqs, mss, vqs, vss, a, b, seeds, b1=b1, b2=b2, deterministic=deterministic,
+                                    out=out)
+    out = [torch.empty_like(g) for g in gs] if out is None else list(out)
+    table, blocks = leaves_table(gs, mqs, mss, vqs, vss, out, seeds)
+    launch_leaves(table, blocks, a, b, b1=b1, b2=b2, deterministic=deterministic)
+    return out
+
+
+def leaves_table(gs, mqs, mss, vqs, vss, out, seeds) -> tuple[torch.Tensor, int]:
+    """The kernel's table of the tensors (int64 [tensors, 10] on their device, copied without a wait) and its blocks."""
+    device = gs[0].device
+    firsts, blocks = leaf_table([g.numel() for g in gs])
+    i8, u8, f32, bf16 = torch.int8, torch.uint8, torch.float32, torch.bfloat16
+    rows = []
+    for g, mq, ms, vq, vs, o, seed, first in zip(gs, mqs, mss, vqs, vss, out, seeds, firsts, strict=True):
+        n, dtype, nb = g.numel(), g.dtype, num_blocks(g.numel())
+        if not (
+            (dtype is bf16 or dtype is f32) and mq.dtype is i8 and vq.dtype is u8 and ms.dtype is f32
+            and vs.dtype is f32 and o.dtype is dtype and mq.numel() == vq.numel() == o.numel() == n
+            and ms.numel() == vs.numel() == nb and g.is_contiguous() and mq.is_contiguous() and vq.is_contiguous()
+            and o.is_contiguous() and ms.is_contiguous() and vs.is_contiguous()
+            and g.device == mq.device == vq.device == o.device == ms.device == vs.device == device
+        ):
+            raise ValueError("adam_q8 kernel does not take " + ", ".join(
+                f"{x.dtype} {tuple(x.shape)} on {x.device}" for x in (g, mq, ms, vq, vs, o)))
+        # a row of the kernel's table: ``Q8Leaf`` in csrc/adam_q8.cu
+        rows.append((g.data_ptr(), mq.data_ptr(), ms.data_ptr(), vq.data_ptr(), vs.data_ptr(), o.data_ptr(), n, first,
+                     seed & _U32, int(dtype is bf16)))
+    return torch.tensor(rows, dtype=torch.int64).pin_memory().to(device, non_blocking=True), blocks
+
+
+def launch_leaves(table: torch.Tensor, blocks: int, a: float, b: float, *, b1: float, b2: float,
+                  deterministic: bool = False) -> None:
+    """One launch of K3 over the tensors of a ``leaves_table``."""
+    err = _build.load().kai0_adam_q8_leaves(
+        table.data_ptr(), table.shape[0], blocks, _f32(b1), _f32(1 - b1), _f32(b2), _f32(1 - b2), _f32(a), _f32(b),
+        _step(LEVELS_S), _step(LEVELS_U), int(deterministic), torch.cuda.current_stream(table.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"adam_q8_leaves launch failed: cudaError_t {err}")
+    LAUNCHES["adam_q8"] += 1
+    LEAVES["adam_q8"] += table.shape[0]

@@ -18,10 +18,10 @@
 // rows against weights of 2048 x 16384: 2 M N K int8 operations against M K +
 // N K + 2 M N bytes is far above the card's ~590 operations a byte), bytes of
 // the weight at the serving shapes (M = 50). Three hand-written kernels, chosen
-// by shape (`launch`, `kai0_int8_mm_splitk`): the forward orientation at
-// M > 64 with 16-byte aligned rows runs on `wgmma` tiles fed by TMA, and K4b's
-// forward orientation at M <= 64 on a kernel that splits the contraction over
-// blocks (both in int8_mm_wgmma.cuh); the rest (`nn`, K4a at M <= 64, rows of
+// by shape (`launch`, `kai0_int8_mm_splitk`): both orientations at M > 64 with
+// 16-byte aligned rows run on `wgmma` tiles fed by TMA, and K4b's forward
+// orientation at M <= 64 on a kernel that splits the contraction over blocks
+// (both in int8_mm_wgmma.cuh); the rest (K4a and `nn` at M <= 64, rows of
 // other widths) on the warp-level `mma.sync.m16n8k32.s8` kernel below: a block
 // of 8 warps owns a 128 x 128 (or 64 x 128 for M <= 64) tile of y, streams
 // 64-byte slices of the contraction axis through a 3-stage
@@ -33,7 +33,7 @@
 // rows are not 16-byte aligned is loaded byte by byte. Nothing is padded in
 // memory.
 //
-// The `nn` orientation needs B fragments that hold four consecutive
+// In this kernel, the `nn` orientation needs B fragments that hold four consecutive
 // contraction indices of one output column, but the weight's rows run along
 // the output columns. `ldmatrix.trans` transposes 16-bit units, so one
 // transposing load whose eight row addresses are the contraction rows
@@ -130,7 +130,7 @@ __device__ __forceinline__ void store_vals(TOut* p, const float (&v)[W]) {
 __device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// The `wgmma` kernel of nt at M > 64 and the split-contraction kernel of nt at M <= 64.
+// The `wgmma` kernel of both orientations at M > 64 and the split-contraction kernel of nt at M <= 64.
 #include "int8_mm_wgmma.cuh"
 
 // BM: rows of the block tile (64 or 128). NN: the weight is [C, N] (else [N, C]).
@@ -378,50 +378,50 @@ bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int box_
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Streaming multiprocessors of the current device, read once. A failed query leaves 0, an empty grid whose
-// launch then fails.
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int device = 0;
-    if (cudaGetDevice(&device) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  return sms;
+bool aligned16(const void* p, int ld) { return ld % 16 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Output tiles of the `wgmma` kernel: 128 wgmma rows over the rows of y (nt) or its columns (NN), BN over the other.
+template <int BN, bool NN>
+int wgmma_tiles(int m, int n) {
+  const int p = NN ? n : m, q = NN ? m : n;
+  return ((p + kWgBM - 1) / kWgBM) * ((q + BN - 1) / BN);
 }
 
-template <int BN, bool LORA, typename TOut>
+// tma_a: xq in boxes of 128 rows (nt) or w [kc, n] in boxes of 128 contraction rows (NN); tma_b: w [n, kc] (nt)
+// or xq (NN) in boxes of BN rows.
+template <int BN, bool NN, bool LORA, typename TOut>
 int launch_wgmma(const void* xq, const void* w, const void* sx, const void* sn, const void* u, const void* b, void* out,
                  int m, int n, int kc, int rank, cudaStream_t st) {
-  CUtensorMap tx, tw;
-  if (!tensor_map(&tx, xq, m, kc, kWgBM) || !tensor_map(&tw, w, n, kc, BN)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta, tb;
+  const bool mapped = NN ? tensor_map(&ta, w, kc, n, kWgBM) && tensor_map(&tb, xq, m, kc, BN)
+                         : tensor_map(&ta, xq, m, kc, kWgBM) && tensor_map(&tb, w, n, kc, BN);
+  if (!mapped) return static_cast<int>(cudaErrorInvalidValue);
   using T = WgTile<BN, LORA, TOut>;
-  const auto kernel = int8_mm_wgmma_kernel<BN, LORA, TOut>;
+  const auto kernel = int8_mm_wgmma_kernel<BN, NN, LORA, TOut>;
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = ((m + kWgBM - 1) / kWgBM) * ((n + BN - 1) / BN);
-  kernel<<<min(tiles, sm_count()), kWgThreads, T::kSmem, st>>>(
-      tx, tw, static_cast<const float*>(sx), static_cast<const float*>(sn), static_cast<const TOut*>(u),
+  kernel<<<min(wgmma_tiles<BN, NN>(m, n), sm_count()), kWgThreads, T::kSmem, st>>>(
+      ta, tb, static_cast<const float*>(sx), static_cast<const float*>(sn), static_cast<const TOut*>(u),
       static_cast<const TOut*>(b), static_cast<TOut*>(out), m, n, kc, rank);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const void* p, int ld) { return ld % 16 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// Two hand-written kernels, chosen by shape: the forward orientation at M > 64 with 16-byte aligned rows
-// (every product the paths launch there) runs on the `wgmma` kernel; the rest (nn, M <= 64 for K4a, rows
-// of other widths) on the `mma.sync` tiles. K4b's nt at M <= 64 goes to the split kernel from the wrapper,
-// which owns its workspace (kai0_int8_mm_splitk).
+// Two hand-written kernels, chosen by shape: both orientations at M > 64 with 16-byte aligned rows (every
+// product the training paths launch, and int8 serving's prefill) run on the `wgmma` kernel; the rest (M <= 64
+// for K4a and for nn, which no path launches, and rows of other widths) on the `mma.sync` tiles. K4b's nt at
+// M <= 64 goes to the split kernel from the wrapper, which owns its workspace (kai0_int8_mm_splitk).
 template <bool NN, bool LORA, typename TOut>
 int launch(const void* xq, const void* w, const void* sx, const void* sn, const void* u, const void* b, void* out,
            int m, int n, int kc, int rank, cudaStream_t st) {
   const int a_aligned = aligned16(xq, kc);
   const int b_aligned = aligned16(w, NN ? n : kc);
-  if (!NN && m > 64 && a_aligned && b_aligned) {
+  if (m > 64 && a_aligned && b_aligned) {
     // 128 x 256 tiles where they fill a wave of the card (fewer bytes a product); 128 x 128 tiles, twice as
     // many blocks, where they would not (the prefill's and the action expert's narrow products).
-    const int tiles = ((m + kWgBM - 1) / kWgBM) * ((n + 255) / 256);
-    return tiles >= sm_count() ? launch_wgmma<256, LORA, TOut>(xq, w, sx, sn, u, b, out, m, n, kc, rank, st)
-                               : launch_wgmma<128, LORA, TOut>(xq, w, sx, sn, u, b, out, m, n, kc, rank, st);
+    return wgmma_tiles<256, NN>(m, n) >= sm_count()
+               ? launch_wgmma<256, NN, LORA, TOut>(xq, w, sx, sn, u, b, out, m, n, kc, rank, st)
+               : launch_wgmma<128, NN, LORA, TOut>(xq, w, sx, sn, u, b, out, m, n, kc, rank, st);
   }
   const dim3 block(kThreads);
 #define KAI0_INT8_MM_LAUNCH(BM)                                                                                   \

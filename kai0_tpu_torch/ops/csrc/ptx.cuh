@@ -1,6 +1,7 @@
-// Warp-level PTX wrappers shared by the tensor-core kernels (int8_mm.cu,
+// Warp-level PTX wrappers shared by the kernels (int8_mm.cu, adam_q8.cu,
 // flash_mqa_mma.cuh, flash_mhsa_mma.cuh): shared-memory addresses, `cp.async`,
-// `ldmatrix` and the bf16 `mma.sync`.
+// `ldmatrix` and the bf16 `mma.sync`; and the device's SM count for persistent
+// grids.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -64,4 +65,15 @@ __device__ __forceinline__ float ex2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Streaming multiprocessors of the current device, read once. A failed query leaves 0, an empty grid whose
+// launch then fails.
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int device = 0;
+    if (cudaGetDevice(&device) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  return sms;
 }

@@ -19,8 +19,9 @@ other), the backward's ``dx`` the other one, over the same tensor.
 
 On CUDA tensors the wrappers launch ``csrc/int8_mm.cu``; on CPU tensors they
 run the plain versions. Which hand-written kernel a product takes follows its
-shape: the forward orientation at M > 64 with 16-byte aligned rows (every such
-product of the paths) runs on ``wgmma`` tiles fed by TMA; K4b's forward
+shape: both orientations at M > 64 with 16-byte aligned rows (every product of
+the training paths and of int8 serving's prefill) run on ``wgmma`` tiles fed
+by TMA, ``nn`` with its weight operand transposed in registers; K4b's forward
 orientation at M <= 64 (int8 serving's denoise steps) on a kernel that splits
 the contraction over blocks to cover the card's SMs and sums the int32 partials
 exactly in a workspace this module keeps per device and width (all zero between

@@ -10,8 +10,9 @@ reads the count before the increment.
 
 State: ``{"count": int, "mu": {name: moment}, "nu": {name: moment}}`` with a
 moment a tensor (f32 or bf16 storage) or, for ``state_dtype="int8"``, a dict
-``{"q": codes, "s": block scales}`` updated in place by kernel K3
-(``kai0_tpu_torch.ops.adam_q8``, which also holds the q8 codec). The q8 blocks are cut over the port's
+``{"q": codes, "s": block scales}`` updated in place by kernel K3, one launch
+over every tensor of the step (``kai0_tpu_torch.ops.adam_q8.adam_q8_leaves``;
+the module also holds the q8 codec). The q8 blocks are cut over the port's
 per-layer tensors, JAX's over its stacked leaves, so q8 state crosses between
 the packages as f32 moments: ``q8_moments`` decodes the port's state per
 tensor, ``q8_state_from_moments`` encodes moments into it.
@@ -160,15 +161,26 @@ class AdamW:
             nu = {k: torch.zeros_like(p, dtype=dtype) for k, p in params.items()}
         return {"count": 0, "mu": mu, "nu": nu}
 
-    def _adam(self, i: int, name: str, g: torch.Tensor, state: dict, count: int, seeds) -> torch.Tensor:
-        """Adam on one tensor (count already incremented); stores the new moments into ``state``."""
+    def _adam_q8(self, names: list[str], gs: list[torch.Tensor], state: dict, count: int, owned: bool) -> list:
+        """Adam with int8 moments on every tensor at once (kernel K3, one launch); updates ``state`` in place.
+
+        ``owned``: the gradients are this step's own copies (clipped), so the updates overwrite them.
+        """
+        b1, b2 = self.b1, self.b2
+        c1, c2 = 1 - _f32(b1) ** count, 1 - _f32(b2) ** count
+        a, b = float(torch.sqrt(c2) / c1), float(self.eps * torch.sqrt(c2))
+        seeds = torch.randint(0, 2**31 - 1, (len(gs),), generator=step_generator(_Q8_TAG, count)).tolist()
+        mu, nu = (state[key] for key in ("mu", "nu"))
+        return _adam_q8.adam_q8_leaves(
+            gs, [mu[k]["q"] for k in names], [mu[k]["s"] for k in names], [nu[k]["q"] for k in names],
+            [nu[k]["s"] for k in names], a, b, seeds, b1=b1, b2=b2, out=gs if owned else None,
+        )
+
+    def _adam(self, i: int, name: str, g: torch.Tensor, state: dict, count: int) -> torch.Tensor:
+        """Adam with f32 or bf16 moments on one tensor (count already incremented); stores them into ``state``."""
         b1, b2, eps = self.b1, self.b2, self.eps
         c1, c2 = 1 - _f32(b1) ** count, 1 - _f32(b2) ** count
         mu, nu = state["mu"], state["nu"]
-        if self.state_dtype == "int8":
-            a, b = float(torch.sqrt(c2) / c1), float(eps * torch.sqrt(c2))
-            mp, vp = mu[name], nu[name]
-            return _adam_q8.adam_q8_leaf(g, mp["q"], mp["s"], vp["q"], vp["s"], a, b, seeds[i], b1=b1, b2=b2)
         if self.state_dtype is None:  # optax.scale_by_adam
             m = (1 - b1) * g + b1 * mu[name]
             v = (1 - b2) * (g * g) + b2 * nu[name]
@@ -195,19 +207,21 @@ class AdamW:
         clip = bool(norm >= self.clip_gradient_norm)  # optax scales only when norm >= max_norm
         count = state["count"] + 1
         step_lr = lr(state["count"])
-        seeds = None
-        if self.state_dtype == "int8":
-            gen = step_generator(_Q8_TAG, count)
-            seeds = torch.randint(0, 2**31 - 1, (len(grads),), generator=gen).tolist()
         new_state = {"count": count, "mu": dict(state["mu"]), "nu": dict(state["nu"])}
+
+        def clipped(g):
+            return _clip(g, norm, self.clip_gradient_norm, all_f32) if clip else g
+
+        if self.state_dtype == "int8":
+            adam = self._adam_q8(list(grads), [clipped(g) for g in grads.values()], new_state, count, clip)
+        else:  # tensor by tensor, so that one clipped copy is alive at a time
+            adam = (self._adam(i, name, clipped(g), new_state, count) for i, (name, g) in enumerate(grads.items()))
+        # Adam's updates are this function's own tensors: the rest of the chain runs in place on them.
         updates = {}
-        for i, (name, g) in enumerate(grads.items()):
-            if clip:
-                g = _clip(g, norm, self.clip_gradient_norm, all_f32)
-            u = self._adam(i, name, g, new_state, count, seeds)
+        for name, u in zip(grads, adam, strict=True):
             p = params[name]
-            u = u + _scalar(self.weight_decay, p) * p  # optax.add_decayed_weights
-            updates[name] = _scalar(-step_lr, u) * u  # optax.scale_by_learning_rate
+            u.add_(_scalar(self.weight_decay, p) * p)  # optax.add_decayed_weights
+            updates[name] = u.mul_(_scalar(-step_lr, u))  # optax.scale_by_learning_rate
         return updates, new_state
 
 

@@ -14,7 +14,8 @@ bf16, the plain version the normalised probabilities). Backward, against
 autograd through the plain version: max abs <= 1e-4 x max |grad| in f32 and
 <= 2e-2 x max |grad| in bf16, per gradient.
 K3 in deterministic mode: scales equal, codes within 1 on at most 1e-5 of the
-elements, update within 1e-6 relative.
+elements, update within 1e-6 relative. K3 over all tensors in one launch
+(``adam_q8_leaves``) gives the per-tensor kernel's bits in both modes.
 """
 
 import pathlib
@@ -326,6 +327,70 @@ def test_adam_q8_kernel_matches_plain(cuda, dtype, shape):
             diff = (code_k.int() - code_p.int()).abs()
             assert diff.max().item() <= 1 and (diff > 0).float().mean().item() <= 1e-5
         assert torch.equal(k_state[1], p_state[1]) and torch.equal(k_state[3], p_state[3])
+
+
+def _q8_leaves(shapes, dtypes, device):
+    """Gradients and moments after two plain steps for tensors of ``shapes`` (gradients of ``dtypes``)."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    states = [_q8_state(shape, device, gen) for shape in shapes]
+    gs = [(torch.randn(shape, generator=gen, device=device) * 1e-3).to(dtype) for shape, dtype in zip(shapes, dtypes)]
+    return gs, states
+
+
+# Tensors of 1,000, 3,000, 2,048, 64 x 2,048, 5 and 2,048 x 16,384 elements: tail blocks, whole blocks, one
+# block, and Gemma-2B's FFN leaf.
+_Q8_SHAPES = [(1000,), (3, 1000), (2048,), (64, 2048), (5,), (2048, 16384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_adam_q8_leaves_matches_the_per_tensor_kernel(cuda, deterministic):
+    dtypes = [torch.bfloat16, torch.float32, torch.bfloat16, torch.float32, torch.bfloat16, torch.bfloat16]
+    gs, states = _q8_leaves(_Q8_SHAPES, dtypes, cuda)
+    seeds = [11, 12, 13, 14, 15, 2**31 - 2]
+    k_states = [[x.clone() for x in s] for s in states]
+    before = (q8.LAUNCHES["adam_q8"], q8.LEAVES["adam_q8"])
+    outs = q8.adam_q8_leaves(gs, *([s[i] for s in k_states] for i in range(4)), 1.7, 2e-8, seeds, b1=0.9, b2=0.95,
+                             deterministic=deterministic)
+    torch.cuda.synchronize()
+    assert (q8.LAUNCHES["adam_q8"], q8.LEAVES["adam_q8"]) == (before[0] + 1, before[1] + len(gs))
+    for g, state, k_state, out, seed in zip(gs, states, k_states, outs, seeds):
+        ref_state = [x.clone() for x in state]
+        ref = q8.adam_q8_leaf(g, *ref_state, 1.7, 2e-8, seed, b1=0.9, b2=0.95, deterministic=deterministic)
+        assert out.dtype == g.dtype and out.shape == g.shape and torch.equal(out, ref)
+        assert all(torch.equal(a, b) for a, b in zip(k_state, ref_state))
+        if deterministic:  # and the plain version's, as the per-tensor kernel's test holds it
+            p_state = [x.clone() for x in state]
+            plain = q8.adam_q8_leaf_plain(g, *p_state, 1.7, 2e-8, seed, b1=0.9, b2=0.95, deterministic=True)
+            torch.testing.assert_close(out.float(), plain.float(), rtol=1e-6, atol=0)
+            for code_k, code_p in ((k_state[0], p_state[0]), (k_state[2], p_state[2])):
+                diff = (code_k.int() - code_p.int()).abs()
+                assert diff.max().item() <= 1 and (diff > 0).float().mean().item() <= 1e-5
+            assert torch.equal(k_state[1], p_state[1]) and torch.equal(k_state[3], p_state[3])
+
+
+@pytest.mark.cuda
+def test_adam_q8_leaves_in_place_and_unaligned(cuda):
+    """Updates written over the gradients, and a gradient whose address is not 16-byte aligned (staged byte by byte)."""
+    shapes = [(4097,), (2048,), (3, 2048)]
+    gs, states = _q8_leaves(shapes, [torch.bfloat16, torch.bfloat16, torch.float32], cuda)
+    seeds = [1, 2, 3]
+    refs = []
+    for g, state, seed in zip(gs, states, seeds):
+        ref_state = [x.clone() for x in state]
+        refs.append((q8.adam_q8_leaf(g, *ref_state, 1.7, 2e-8, seed, b1=0.9, b2=0.95), ref_state))
+    storage = torch.zeros(2048 + 1, dtype=torch.bfloat16, device=cuda)
+    storage[1:] = gs[1]
+    unaligned = [gs[0], storage[1:], gs[2]]  # the second 2 bytes past an aligned address
+    copies = [g.clone() for g in gs]
+    for grads, out in ((unaligned, None), (copies, copies)):
+        k_states = [[x.clone() for x in s] for s in states]
+        outs = q8.adam_q8_leaves(grads, *([s[i] for s in k_states] for i in range(4)), 1.7, 2e-8, seeds, b1=0.9,
+                                 b2=0.95, out=out)
+        torch.cuda.synchronize()
+        for k, (o, k_state, (ref, ref_state)) in enumerate(zip(outs, k_states, refs)):
+            assert torch.equal(o, ref) and all(torch.equal(a, b) for a, b in zip(k_state, ref_state))
+            assert out is None or o.data_ptr() == out[k].data_ptr()
 
 
 def test_cpu_tensors_take_the_plain_path():

@@ -15,10 +15,11 @@ the output and the term; where the two nearly cancel, a step of the term is
 many steps of the output); in f32 the difference is at most 1e-5 x max |y|
 (the r-term sum's rounding).
 
-The forward orientation runs on one of three kernels by shape (``wgmma`` tiles at
-M > 64 with 16-byte aligned rows, the split contraction for K4b at M <= 64, the
-``mma.sync`` tiles otherwise); the cases below reach each, and
-``test_kernel_choice_follows_the_shape`` reads from the profiler which one ran.
+A product runs on one of three kernels by shape (``wgmma`` tiles in both
+orientations at M > 64 with 16-byte aligned rows, the split contraction for K4b's
+forward orientation at M <= 64, the ``mma.sync`` tiles otherwise); the cases
+below reach each, and ``test_kernel_choice_follows_the_shape`` reads from the
+profiler which one ran.
 """
 
 import pytest
@@ -189,24 +190,52 @@ def test_int8_matmul_lora_wgmma(cuda, rank):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [65, 1600, 7744])
+@pytest.mark.parametrize("n,k", [(1008, 2064), (2064, 1040)])
+def test_int8_matmul_nn_wgmma_is_bit_equal(cuda, out_dtype, m, n, k):
+    """K4b nn (the LoRA step's dx) at M > 64 on the wgmma kernel: ragged M, N and K, with and without sn."""
+    xq, w, sx, sn = _operands(m, n, k, m + n + k, cuda)
+    w = w.T.contiguous()  # [k, n]: the stored [out, in] weight of a dx product
+    for scales in (sn, None):
+        out = mm.int8_matmul(xq, w, sx, scales, nt=False, out_dtype=out_dtype)
+        again = mm.int8_matmul(xq, w, sx, scales, nt=False, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        ref = mm.int8_matmul_plain(xq, w, sx, scales, nt=False, out_dtype=out_dtype)
+        assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+        assert torch.equal(out, again)
+
+
+def _orientation(name: str) -> str:
+    """``nn`` or ``nt`` from the template arguments of an int8 kernel's name (its second one is NN)."""
+    return "nn" if name.split("<")[1].split(",")[1].strip() == "true" else "nt"
+
+
+@pytest.mark.cuda
 def test_kernel_choice_follows_the_shape(cuda):
-    """nt at M > 64 with aligned rows: wgmma; K4b nt at M <= 64: the split kernel; unaligned rows and nn: mma.sync."""
+    """Both orientations at M > 64 with aligned rows: wgmma; K4b nt at M <= 64: the split kernel; unaligned rows,
+    K4a and nn at M <= 64: mma.sync."""
     xq, w, sx, sn, u, b = _operands(129, 256, 2048, 0, cuda, 16)
     # operands made here: a copy inside a profiled call would show as a kernel of its own
     x50, sx50, u50, g = xq[:50].contiguous(), sx[:50].contiguous(), u[:50].contiguous(), xq[:, :256].contiguous()
+    g50, g40 = g[:50].contiguous(), g[:, :40].contiguous()
     odd_x, odd_w = xq[:, :2040].contiguous(), w[:, :2040].contiguous()  # rows of 2040 bytes: not 16-byte aligned
     cases = {
-        "int8_mm_wgmma_kernel": (lambda: mm.int8_matmul(xq, w, sx, sn, nt=True),
-                                 lambda: mm.int8_matmul_lora(xq, w, sx, sn, u, b)),
-        "int8_mm_splitk_kernel": (lambda: mm.int8_matmul(x50, w, sx50, sn, nt=True),),
-        "int8_mm_kernel<": (lambda: mm.int8_matmul(odd_x, odd_w, sx, sn, nt=True),
-                            lambda: mm.int8_matmul(g, w, sx, None, nt=False),
-                            lambda: mm.int8_matmul_lora(x50, w, sx50, sn, u50, b)),
+        ("int8_mm_wgmma_kernel<", "nt"): (lambda: mm.int8_matmul(xq, w, sx, sn, nt=True),
+                                          lambda: mm.int8_matmul_lora(xq, w, sx, sn, u, b)),
+        ("int8_mm_wgmma_kernel<", "nn"): (lambda: mm.int8_matmul(g, w, sx, None, nt=False),),
+        ("int8_mm_splitk_kernel<", "nt"): (lambda: mm.int8_matmul(x50, w, sx50, sn, nt=True),),
+        ("int8_mm_kernel<", "nt"): (lambda: mm.int8_matmul(odd_x, odd_w, sx, sn, nt=True),
+                                    lambda: mm.int8_matmul_lora(x50, w, sx50, sn, u50, b)),
+        ("int8_mm_kernel<", "nn"): (lambda: mm.int8_matmul(g40, odd_w[:40], sx, None, nt=False),
+                                    lambda: mm.int8_matmul(g50, w, sx50, None, nt=False)),
     }
     for calls in cases.values():  # the first call of a shape may allocate the split kernel's workspace
         for call in calls:
             call()
-    for kernel, calls in cases.items():
+    for (kernel, orientation), calls in cases.items():
         for call in calls:
             names = _kernels_run(call)
             assert len(names) == 1 and kernel in names[0], (kernel, names)
+            if kernel != "int8_mm_splitk_kernel<":
+                assert _orientation(names[0].replace("(anonymous namespace)::", "")) == orientation, names

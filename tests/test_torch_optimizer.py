@@ -12,6 +12,8 @@ moments mu equal and the update within 1e-2 x max (nu is rounded
 stochastically with another stream: one bf16 ulp is 0.4%).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -117,6 +119,84 @@ def test_adam_q8_draws_are_unbiased_and_follow_the_seed():
     # One log-grid step is a ratio of exp(7 ln10 / 127) = 1.135; 64 draws bring the mean within ~3% of it.
     rel = ((mean - exact).abs() / exact.abs()).median().item()
     assert rel < 0.01, rel
+
+
+def test_leaf_table_is_the_prefix_sums_of_the_block_counts():
+    firsts, total = adam_q8.leaf_table([1, 2048, 2049, 5000, 4096])
+    assert firsts == [0, 1, 2, 4, 7] and total == 9
+    assert adam_q8.leaf_table([]) == ([], 0)
+    with pytest.raises(ValueError):
+        adam_q8.leaf_table([3, 0])
+
+
+def _q8_tensors(shapes, dtypes, seed):
+    """Gradients and q8 moments (codes and scales of seeded f32 moments) for tensors of ``shapes``."""
+    rng = np.random.default_rng(seed)
+    gs, states = [], []
+    for shape, dtype in zip(shapes, dtypes, strict=True):
+        gs.append(torch.from_numpy((rng.standard_normal(shape) * 1e-3).astype(np.float32)).to(dtype))
+        mq, ms = adam_q8.q8_encode(torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 1e-4), 0.5, signed=True)
+        vq, vs = adam_q8.q8_encode(torch.from_numpy(rng.random(shape).astype(np.float32) * 1e-6), 0.5, signed=False)
+        states.append([mq, ms, vq, vs])
+    return gs, states
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_adam_q8_leaves_plain_is_the_leaf_plain_on_each_tensor(deterministic):
+    """The all-tensors entry on CPU tensors, with and without ``out``, is ``adam_q8_leaf_plain`` tensor by tensor."""
+    shapes = [(5,), (3, 1000), (2048,), (2, 2049)]
+    gs, states = _q8_tensors(shapes, [torch.float32, torch.bfloat16, torch.float32, torch.bfloat16], 9)
+    seeds = [3, 4, 5, 2**31 - 2]
+    ref_states = [[x.clone() for x in s] for s in states]
+    refs = [adam_q8.adam_q8_leaf_plain(g, *s, 1.7, 2e-8, seed, b1=0.9, b2=0.95, deterministic=deterministic)
+            for g, s, seed in zip(gs, ref_states, seeds)]
+    for entry, out in ((adam_q8.adam_q8_leaves, None), (adam_q8.adam_q8_leaves_plain, [torch.empty_like(g) for g in gs])):
+        got_states = [[x.clone() for x in s] for s in states]
+        got = entry(gs, *([s[i] for s in got_states] for i in range(4)), 1.7, 2e-8, seeds, b1=0.9, b2=0.95,
+                    deterministic=deterministic, out=out)
+        for k, (u, ref) in enumerate(zip(got, refs, strict=True)):
+            assert u.dtype == ref.dtype and torch.equal(u, ref)
+            assert out is None or u is out[k]
+        for a, b in zip(got_states, ref_states, strict=True):
+            assert all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+
+
+def test_adamw_int8_matches_the_jax_transform_deterministic(monkeypatch):
+    """q8 AdamW over ragged tensors, three steps, both packages with u = 0.5: JAX's chain runs
+    ``_scale_by_adam_q8`` through its Pallas kernel in interpret mode (tensors of 2048 elements or more take it), the
+    port its one-launch kernel's plain version. The updates within 1e-5 x max, as for f32 moments (the global
+    norm's f32 sums run in another order); those ulps reach the moments, so their block scales agree within 1e-6
+    relative and a code that lies on a rounding boundary may land one step of the log grid away (the tolerance of
+    ``tests/test_optimizer.py::test_adamw_q8_sharded_transform_on_mesh`` between JAX's own q8 paths)."""
+    from kai0_tpu.parallel import sharding
+
+    rng = np.random.default_rng(8)
+    shapes = {"w": (64, 48), "r": (3, 1000), "t": (2048 + 5,), "b": (2, 2048)}
+    params = {k: (rng.standard_normal(s) * 0.1).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: (rng.standard_normal(s) * (0.3 if i == 1 else 0.01)).astype(np.float32) for k, s in shapes.items()}
+             for i in range(3)]  # step 1 has a global norm above 1: the clip scales it
+    schedule = dict(peak_lr=1e-3, decay_lr=1e-4, warmup_steps=2, decay_steps=10)
+    jax_tx = jax_opt.AdamW(state_dtype="int8").create(jax_opt.CosineDecaySchedule(**schedule).create())
+    port = opt.AdamW(state_dtype="int8")
+    monkeypatch.setenv("KAI0_Q8_PALLAS_INTERPRET", "1")
+    monkeypatch.setattr(adam_q8, "adam_q8_leaves", functools.partial(adam_q8.adam_q8_leaves, deterministic=True))
+    torch_params = to_torch(params)
+    state = port.init(torch_params)
+    with sharding.set_mesh(sharding.make_mesh(1, devices=jax.devices()[:1])):  # one device: the per-leaf kernel
+        jax_state = jax_tx.init(params)
+        for g in grads:
+            jax_updates, jax_state = jax_tx.update(g, jax_state, params)
+            updates, state = port.update(to_torch(g), state, torch_params, opt.CosineDecaySchedule(**schedule))
+            adam_state = jax_state[1]
+            for k in params:
+                want = np.asarray(jax_updates[k])
+                np.testing.assert_allclose(updates[k].numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max(), err_msg=k)
+                for key in ("mu", "nu"):
+                    codes = state[key][k]["q"].numpy().astype(np.int32)
+                    want_codes = np.asarray(getattr(adam_state, key)[k]["q"]).astype(np.int32)
+                    assert np.abs(codes - want_codes).max() <= 1, (k, key)  # one step of the log grid
+                    np.testing.assert_allclose(state[key][k]["s"].numpy(), np.asarray(getattr(adam_state, key)[k]["s"]),
+                                               rtol=1e-6, atol=0)
 
 
 def _adamw_pair(state_dtype):
