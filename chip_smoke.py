@@ -76,7 +76,9 @@ Phases, none of which catches an error (any failure exits non-zero):
     serving), 2 x 968 (phase 12) and the rows phase 13 launches at batch 32:
     1,600 (the action expert), 7,744 (a row chunk of Gemma-2B's fused FFN) and,
     at the attention sites, which are not chunked, 30,976.
-    K5 (``row_quant``; bf16 activations and the backward's f32 ``dy·s``) and
+    K5 (``row_quant``; bf16 and f32 rows, and with a column scale the
+    backward's ``dy·s`` from bf16 and f32 ``dy`` at every ``dx`` shape, timed
+    beside the cast, multiply and K5 it replaces) and
     K4b (``int8_matmul``; the forward orientation with both scales, the
     backward's orientation with the row scale only; bf16 and f32 outputs) are
     held bit-equal. K4a (``int8_matmul_lora``; rank 16 or 32, and rank 64 on
@@ -116,11 +118,13 @@ Phases, none of which catches an error (any failure exits non-zero):
     only. A second run from the same seed must give identical losses; its last
     step runs under torch.profiler, whose int8 kernels must be the ``wgmma``
     kernel in the forward orientation for every forward product (K4a, and K4b
-    at the attention sites) and in the backward's orientation for every ``dx``.
+    at the attention sites) and in the backward's orientation for every ``dx``,
+    and every K5 launch must be its register kernel, with the column scale for
+    each ``dx`` (365 a step).
 
 Build: ptxas's register and spill lines of every kernel are printed; the
-tensor-core attention kernels, the ``wgmma`` and split int8 kernels and the
-all-tensors AdamW kernel must not spill.
+tensor-core attention kernels, the ``wgmma`` and split int8 kernels, the
+all-tensors AdamW kernel and K5's register kernel must not spill.
 
 The line before the last is the kernels' JSON record: times in bf16, the
 attention kernels at phase 6's shapes (K1f/K1b at batch 32 and K2f/K2b at
@@ -129,7 +133,8 @@ the AdamW kernel over all tensors of phase 7 (``ms`` its one launch on a table
 built beforehand, ``ms_call`` the call with the host's table, and
 ``ms_per_tensor_kernel`` the 811 calls of the per-tensor kernel; its [2048, 16384]
 leaf under keys suffixed ``_leaf``), the int8 kernels at shapes phase 13 launches (K5
-on a [7744, 16384] bf16 chunk, K4a the gate/up product of that chunk, rank 64
+on a [7744, 16384] bf16 chunk, and as ``row_quant_colscale`` on the gate/up ``dx``'s bf16
+``dy·s`` of that chunk, with the three launches it replaced, K4a the gate/up product of that chunk, rank 64
 under keys suffixed ``_r64``, K4b its ``dx``, and K4b on the action expert's down in a denoise step, M = 50,
 under keys suffixed ``_m50``: int8 serving's split-contraction kernel);
 ``launches`` from the first 5-step run of the path that runs the kernel: phase
@@ -173,8 +178,9 @@ INT8_SITES = {
 }
 
 # Kernels whose ptxas report must show no spills: the tensor-core attention kernels, the int8 kernels of
-# int8_mm_wgmma.cuh (both orientations) and the all-tensors AdamW kernel.
-SPILL_FREE_KERNELS = ("mqa_mma", "mhsa_mma", "int8_mm_wgmma_kernel", "int8_mm_splitk_kernel", "adam_q8_leaves_kernel")
+# int8_mm_wgmma.cuh (both orientations), the all-tensors AdamW kernel and K5's register kernel.
+SPILL_FREE_KERNELS = ("mqa_mma", "mhsa_mma", "int8_mm_wgmma_kernel", "int8_mm_splitk_kernel", "adam_q8_leaves_kernel",
+                      "row_quant_regs_kernel")
 # The scalar-FMA attention kernels (flash_fwd.cuh, flash_bwd.cuh but its delta pass): f32 only.
 SCALAR_ATTENTION_KERNELS = ("flash_fwd_partial", "flash_fwd_combine", "flash_bwd_dkdv", "flash_bwd_dq")
 
@@ -434,7 +440,7 @@ def serve_int8(served) -> dict:
         again = policy.infer(obs, noise=noises[plan[0]])["actions"]
         torch.cuda.synchronize()
     _check(np.array_equal(again, actions[0]), "int8: the profiled request gave other actions")
-    counts = _check_int8_orientations(_int8_kernels(prof), "profiled int8 request")
+    counts = _check_int8_orientations(_kernels_named(prof, "int8_mm"), "profiled int8 request")
     want = {"wgmma nt": 18 * 6, "wgmma nn": 0, "splitk nt": 18 * 10 * 6, "mma.sync nt": 0, "mma.sync nn": 0}
     _check(counts == want, f"int8 request: launches by kernel {counts}, want {want}")
     for i in (1, 2, 3):
@@ -768,7 +774,7 @@ def check_int8_kernels() -> dict:
     def tag(dtype):
         return str(dtype)[6:]
 
-    # K5: bf16 activations at every contraction width, and the backward's f32 dy·s at every output width.
+    # K5: bf16 activations at every contraction width, and f32 rows (phase 12's activations) at every width.
     widths = {bf16: (1024, 2048, 4096, 16384), f32: (512, 1024, 2048, 4096, 16384)}
     for dtype, ks in widths.items():
         for m in (*INT8_ROWS, INT8_CHUNK_ROWS, INT8_ATTENTION_ROWS):
@@ -789,6 +795,34 @@ def check_int8_kernels() -> dict:
                 if (dtype, m, k) == (bf16, INT8_CHUNK_ROWS, 16384):
                     record["row_quant"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                                            "bound_by": "bytes", "library_ms": None}
+
+    # K5 with a column scale, the backward's q_row(dy·s), at every dx shape of both experts: dy [m, N] in bf16 (the
+    # training path's) and f32, s of [N] from 1e-5 to 1e-2; beside the three launches it replaces (the cast, the
+    # multiply, K5 on the f32 product) on the same inputs. Drawn from a generator of its own: the draws of the
+    # products below stay the same.
+    cs_gen = torch.Generator(device="cuda").manual_seed(11)
+    dx_shapes = sorted({(m, n) for sites, _ in INT8_SITES.values() for site, (_, n) in sites.items()
+                        for m in (*INT8_ROWS, INT8_CHUNK_ROWS) + ((INT8_ATTENTION_ROWS,) if site in ("q", "kv", "out") else ())})
+    for (m, n), dtype in ((shape, dtype) for shape in dx_shapes for dtype in (bf16, f32)):
+        dy = (torch.randn(m, n, generator=cs_gen, device="cuda") * 3).to(dtype)
+        dy[1] = 0
+        cs = 10.0 ** (torch.rand(n, generator=cs_gen, device="cuda") * 3 - 5)
+        xq, sx = rq.row_quant(dy, col_scale=cs)
+        ref_q, ref_s = rq.row_quant_plain(dy, cs)
+        torch.cuda.synchronize()
+        _check(torch.equal(sx, ref_s) and torch.equal(xq, ref_q), f"row_quant dy·s [{m},{n}] {dtype}: not bit-equal")
+        _check(not xq[1].any() and xq.abs().max().item() == 127, f"row_quant dy·s [{m},{n}] {dtype}: codes")
+        ms, plain_ms, three_ms = (_cuda_ms(f, runs=10) for f in (
+            lambda: rq.row_quant(dy, col_scale=cs), lambda: rq.row_quant_plain(dy, cs),
+            lambda: rq.row_quant(dy.to(f32) * cs)))
+        bound_ms = _nbytes(dy, cs, xq, sx) / HBM_BYTES_PER_S * 1e3
+        print(f"kernel row_quant dy·s [{m},{n}] {tag(dtype)}: bit-equal; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} (bytes) cast_multiply_row_quant_ms={three_ms:.4f}")
+        if (dtype, m, n) == (bf16, INT8_CHUNK_ROWS, 16384):
+            record["row_quant_colscale"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                            "bound_by": "bytes", "library_ms": None,
+                                            "cast_multiply_row_quant_ms": three_ms}
+    del dy, cs
 
     for expert, (sites, rank) in INT8_SITES.items():
         for site, (k, n) in sites.items():
@@ -1063,11 +1097,11 @@ def _kernel_name(event_name: str) -> str:
     return name.split("(")[0].split("::")[-1]
 
 
-def _int8_kernels(prof) -> dict:
-    """(ms, count) by int8 product kernel of a profile."""
+def _kernels_named(prof, part: str) -> dict:
+    """(ms, count) by kernel of a profile, with its template arguments, of the kernels whose names hold ``part``."""
     kernels = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and "int8_mm" in e.name:
+        if e.device_type == torch.autograd.DeviceType.CUDA and part in e.name:
             ms, count = kernels.get(_kernel_name(e.name), (0.0, 0))
             kernels[_kernel_name(e.name)] = (ms + e.time_range.elapsed_us() / 1000, count + 1)
     return kernels
@@ -1137,15 +1171,19 @@ def _lora_int8_step_launches(batch: int) -> dict:
     and 3 K4b (``dx`` of down, gate, up). The prefix expert's last layer
     reaches the loss only through its K and V: its backward is the kv ``dx``,
     plus the q ``dx`` on the zero gradient that the joint attention hands to
-    its query rows.
+    its query rows. Every ``dx`` quantizes ``dy·s`` with a column scale
+    (``row_quant_colscale``, counted in ``row_quant`` too).
     """
     from kai0_tpu_torch.ops import quant
 
     chunks = [len(quant._row_chunks(batch * rows, mlp_dim)) for rows, mlp_dim in ((968, 16384), (50, 4096))]  # prefix, suffix
     depth = 18
-    fwd = {"row_quant": 6 + 2 * sum(chunks), "int8_matmul": 6, "int8_matmul_lora": 3 * sum(chunks)}
-    bwd = {"row_quant": 6 + 4 * sum(chunks), "int8_matmul": 6 + 3 * sum(chunks), "int8_matmul_lora": 2 * sum(chunks)}
-    last = {"row_quant": 2 + 3 + 4 * chunks[1], "int8_matmul": 2 + 3 + 3 * chunks[1], "int8_matmul_lora": 2 * chunks[1]}
+    fwd = {"row_quant": 6 + 2 * sum(chunks), "row_quant_colscale": 0, "int8_matmul": 6,
+           "int8_matmul_lora": 3 * sum(chunks)}
+    bwd = {"row_quant": 6 + 4 * sum(chunks), "row_quant_colscale": 6 + 3 * sum(chunks),
+           "int8_matmul": 6 + 3 * sum(chunks), "int8_matmul_lora": 2 * sum(chunks)}
+    last = {"row_quant": 2 + 3 + 4 * chunks[1], "row_quant_colscale": 2 + 3 + 3 * chunks[1],
+            "int8_matmul": 2 + 3 + 3 * chunks[1], "int8_matmul_lora": 2 * chunks[1]}
     return {k: 2 * depth * fwd[k] + (depth - 1) * bwd[k] + last[k] for k in fwd}
 
 
@@ -1190,7 +1228,8 @@ def train(kind: str = "full") -> tuple[dict, list]:
         trainable = {k for k, p in state.params.items() if p.requires_grad}
         if kind == "full":
             # one launch of the 8-bit AdamW kernel a step, over every tensor
-            want = {**attention, "adam_q8": 1, "row_quant": 0, "int8_matmul": 0, "int8_matmul_lora": 0}
+            want = {**attention, "adam_q8": 1, "row_quant": 0, "row_quant_colscale": 0, "int8_matmul": 0,
+                    "int8_matmul_lora": 0}
         else:
             want = {**attention, "adam_q8": 0, **_lora_int8_step_launches(TRAIN_BATCH)}
             frozen_before = {k: v.clone() for k, v in model.state_dict().items() if k not in trainable}
@@ -1276,7 +1315,18 @@ def train(kind: str = "full") -> tuple[dict, list]:
     if kind == "lora_int8":
         # The forward products (K4a, and K4b at the attention sites twice: forward and recompute) are nt, every
         # other K4b product a dx (nn); all on the wgmma kernel.
-        counts = _check_int8_orientations(_int8_kernels(prof), "profiled step")
+        counts = _check_int8_orientations(_kernels_named(prof, "int8_mm"), "profiled step")
+        # K5: every launch on the register kernel (row_quant_regs_kernel<T, CS, TPR>), the dx's dy·s with the
+        # column scale (CS, the second template argument).
+        k5 = _kernels_named(prof, "row_quant")
+        other = families.get("elementwise / reductions / other", (0.0, 0))
+        print("  K5 kernels of the profiled step: " + "; ".join(
+            f"{k} {ms:.2f} ms x{count}" for k, (ms, count) in sorted(k5.items(), key=lambda kv: -kv[1][0]))
+              + f"; elementwise / reductions / other: {other[0]:.2f} ms, {other[1]} launches")
+        _check(all(k.startswith("row_quant_regs_kernel<") for k in k5), f"K5 off the register kernel: {sorted(k5)}")
+        colscale = sum(count for k, (_, count) in k5.items() if k.split("<")[1].split(",")[1].strip() == "true")
+        _check((sum(count for _, count in k5.values()), colscale) == (want["row_quant"], want["row_quant_colscale"]),
+               f"K5 launches of the profiled step: {k5}")
         nt_k4b = 2 * 18 * 6
         expected = {"wgmma nt": want["int8_matmul_lora"] + nt_k4b, "wgmma nn": want["int8_matmul"] - nt_k4b,
                     "splitk nt": 0, "mma.sync nt": 0, "mma.sync nn": 0}
@@ -1332,10 +1382,11 @@ def main() -> int:
         "flash_mhsa_bwd": ("kai0_tpu_torch/ops/csrc/flash_mhsa_bwd.cu", "kai0_tpu/ops/pallas_attention.py:449"),
         "adam_q8": ("kai0_tpu_torch/ops/csrc/adam_q8.cu", "kai0_tpu/ops/pallas_q8.py:119"),
         "row_quant": ("kai0_tpu_torch/ops/csrc/row_quant.cu", "kai0_tpu/ops/pallas_rowquant.py:68"),
+        "row_quant_colscale": ("kai0_tpu_torch/ops/csrc/row_quant.cu", "kai0_tpu/ops/pallas_rowquant.py:68"),
         "int8_matmul": ("kai0_tpu_torch/ops/csrc/int8_mm.cu", "kai0_tpu/ops/pallas_quant.py:257"),
         "int8_matmul_lora": ("kai0_tpu_torch/ops/csrc/int8_mm.cu", "kai0_tpu/ops/pallas_quant.py:180"),
     }
-    int8_kernels = ("row_quant", "int8_matmul", "int8_matmul_lora")
+    int8_kernels = ("row_quant", "row_quant_colscale", "int8_matmul", "int8_matmul_lora")
     kernels = []
     for name, (source, replaces) in sources.items():
         # launches: over the 5 steps of the main path that runs the kernel (int8 kernels: LoRA + int8; others: full fine-tune)

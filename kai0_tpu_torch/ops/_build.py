@@ -40,8 +40,8 @@ _SIGNATURES = {
     "kai0_adam_q8": [_P] * 6 + [ctypes.c_longlong] + [_F] * 8 + [ctypes.c_uint, _I, _I, _P],
     # table, leaves, blocks, b1, 1-b1, b2, 1-b2, a, b, step_s, step_u, deterministic, stream
     "kai0_adam_q8_leaves": [_P, _I, _I] + [_F] * 8 + [_I, _P],
-    # x, xq, sx, m, k, is_bf16, stream
-    "kai0_row_quant": [_P] * 3 + [_I] * 3 + [_P],
+    # x, col_scale (or null), xq, sx, m, k, is_bf16, stream
+    "kai0_row_quant": [_P] * 4 + [_I] * 3 + [_P],
     # xq, w, sx, sn (or null), out, m, n, k, nt, out_bf16, stream
     "kai0_int8_mm": [_P] * 5 + [_I] * 5 + [_P],
     # xq, w, sx, sn, u, b, out, m, n, k, rank, is_bf16, stream

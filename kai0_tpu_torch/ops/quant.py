@@ -26,9 +26,10 @@ K4b in its other orientation over the same stored weight. On CPU tensors the
 same wrappers run their plain versions. The small LoRA products around the
 kernels are ``torch.matmul``, as JAX leaves them outside its kernels. Rows are
 independent, so the fused FFN walks over row chunks sized to keep its widest
-intermediate, the backward's f32 ``dy·s`` of ``[rows, mlp_dim]``, within
-``_CHUNK_BYTES``; chunking changes no value but the f32 summation order of the
-six LoRA gradients.
+intermediates, the backward's f32 images of ``[rows, mlp_dim]`` (the LoRA
+gradients' operands, and ``dy·s`` on the CPU), within ``_CHUNK_BYTES``;
+chunking changes no value but the f32 summation order of the six LoRA
+gradients.
 """
 
 from __future__ import annotations
@@ -123,8 +124,11 @@ def sq_norm(ql: QuantLinear) -> torch.Tensor:
 
 
 def _dx(ql: QuantLinear, dy: torch.Tensor) -> torch.Tensor:
-    """dL/dx of a quantized product, straight-through: ``q_row(dy · s) @ q`` with the row scale in the epilogue."""
-    gq, sg = row_quant(dy.to(torch.float32) * ql.scale)
+    """dL/dx of a quantized product, straight-through: ``q_row(dy · s) @ q`` with the row scale in the epilogue.
+
+    ``dy · s`` is f32; on CUDA K5 forms it in registers from ``dy``, on the CPU the plain version writes it.
+    """
+    gq, sg = row_quant(dy, col_scale=ql.scale)
     return int8_matmul(gq, ql.qweight, sg, None, nt=False, out_dtype=dy.dtype)
 
 

@@ -5,8 +5,9 @@ without the repository's conftest:
 
     python -m pytest tests/test_torch_int8_cuda.py -m cuda --noconftest -q
 
-The ``cuda`` tests skip where no card is present. K5 (codes and scales) and
-K4b (both orientations, with and without column scales, bf16 and f32 outputs)
+The ``cuda`` tests skip where no card is present. K5 (codes and scales, with
+and without a column scale, from its register kernel and from its edge kernel
+for ragged or misaligned rows) and K4b (both orientations, with and without column scales, bf16 and f32 outputs)
 are held bit-equal. K4a (the forward orientation only) sums its rank-r term in another order than the plain
 version's library product, so the bf16 rounding of that term can flip by one
 unit in its last place: at most 1e-3 of the bf16 outputs differ at all, and
@@ -50,22 +51,76 @@ def _operands(m, n, k, seed, device, rank=None, dtype=torch.bfloat16):
     return xq, w, sx, sn, u, b
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("m,k", [(50, 1024), (968, 2048), (300, 16384), (7, 100), (33, 1027)])
-def test_row_quant_kernel_is_bit_equal(cuda, dtype, m, k):
-    g = torch.Generator(device=cuda).manual_seed(k)
-    x = (torch.randn(m, k, generator=g, device=cuda) * 3).to(dtype)
-    x[1] = 0  # a row of zeros: s = 1e-30/127, codes 0
-    before = rq.LAUNCHES["row_quant"]
-    xq, sx = rq.row_quant(x)
+def _row_quant_operands(m, k, dtype, device, offset=0):
+    """Rows (a row of zeros, a row whose amax is 1e-20) and column scales from 1e-5 to 1e-2, each ``offset``
+    elements past an aligned allocation."""
+    g = torch.Generator(device=device).manual_seed(m + 7 * k)
+    x = torch.empty(m * k + offset, dtype=dtype, device=device)[offset:].view(m, k)
+    x.copy_(torch.randn(m, k, generator=g, device=device) * 3)
+    if m > 2:
+        x[1] = 0
+        x[2] = torch.randn(k, generator=g, device=device) * 3e-21
+        x[2, 0] = 1e-20
+    c = torch.empty(k + offset, device=device)[offset:]
+    c.copy_(10.0 ** (torch.rand(k, generator=g, device=device) * 3 - 5))
+    return x, c
+
+
+def _check_row_quant(x, c):
+    before = dict(rq.LAUNCHES)
+    xq, sx = rq.row_quant(x, col_scale=c)
     torch.cuda.synchronize()
-    assert rq.LAUNCHES["row_quant"] == before + 1
-    ref_q, ref_s = rq.row_quant_plain(x)
-    assert xq.dtype == torch.int8 and sx.dtype == torch.float32 and sx.shape == (m, 1)
+    assert rq.LAUNCHES == {"row_quant": before["row_quant"] + 1,
+                           "row_quant_colscale": before["row_quant_colscale"] + (c is not None)}
+    ref_q, ref_s = rq.row_quant_plain(x, c)
+    assert xq.dtype == torch.int8 and sx.dtype == torch.float32 and sx.shape == (x.shape[0], 1)
     assert torch.equal(sx, ref_s), (sx - ref_s).abs().max().item()
     assert torch.equal(xq, ref_q), (xq.int() - ref_q.int()).abs().max().item()
-    assert not xq[1].any() and xq.abs().max().item() == 127
+    if x.shape[0] > 2:
+        assert not xq[1].any() and xq[2].abs().max().item() == 127 and sx[2].item() < 1e-20
+
+
+# Every M against every K, and shapes of the int8 paths off that grid.
+_ROW_QUANT_SHAPES = [(m, k) for m in (1, 50, 65, 968, 7744) for k in (100, 1027, 2048, 4096, 16384)] + [
+    (50, 1024), (300, 16384), (7, 100), (33, 1027)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col_scale", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k", _ROW_QUANT_SHAPES)
+def test_row_quant_kernel_is_bit_equal(cuda, col_scale, dtype, m, k):
+    x, c = _row_quant_operands(m, k, dtype, cuda)
+    _check_row_quant(x, c if col_scale else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col_scale", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k", [(65, 2048), (7, 16384), (50, 1024)])
+def test_row_quant_misaligned_base_is_bit_equal(cuda, col_scale, dtype, m, k):
+    x, c = _row_quant_operands(m, k, dtype, cuda, offset=1)
+    assert x.data_ptr() % 16 and c.data_ptr() % 16
+    _check_row_quant(x, c if col_scale else None)
+
+
+@pytest.mark.cuda
+def test_row_quant_kernel_choice(cuda):
+    """Aligned rows of a multiple of 16 elements up to 16384: the register kernel; others: the edge kernel."""
+    x, c = _row_quant_operands(65, 2048, torch.bfloat16, cuda)
+    odd, odd_c = _row_quant_operands(65, 2048, torch.bfloat16, cuda, offset=1)
+    ragged, ragged_c = _row_quant_operands(65, 1027, torch.float32, cuda)
+    wide = torch.randn(3, 16400, device=cuda)
+    cases = {
+        "row_quant_regs_kernel<": (lambda: rq.row_quant(x), lambda: rq.row_quant(x, c)),
+        "row_quant_edge_kernel<": (lambda: rq.row_quant(odd), lambda: rq.row_quant(x, odd_c),
+                                   lambda: rq.row_quant(ragged, ragged_c), lambda: rq.row_quant(wide)),
+    }
+    for kernel, calls in cases.items():
+        for call in calls:
+            call()
+            names = _kernels_run(call)
+            assert len(names) == 1 and kernel in names[0], (kernel, names)
 
 
 @pytest.mark.cuda
@@ -124,6 +179,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         mm.int8_matmul(xq.T, w, sx, sn, nt=True)  # contraction mismatch
     with pytest.raises(ValueError):
         rq.row_quant(torch.zeros(4, 8, device=cuda, dtype=torch.float16))
+    x = torch.zeros(4, 8, device=cuda)
+    for c in (torch.ones(9, device=cuda), torch.ones(8, device=cuda, dtype=torch.bfloat16), torch.ones(8),
+              torch.ones(16, device=cuda)[::2]):
+        with pytest.raises(ValueError):
+            rq.row_quant(x, col_scale=c)
 
 
 def _kernels_run(fn) -> list[str]:
