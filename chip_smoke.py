@@ -18,12 +18,16 @@ Phases, none of which catches an error (any failure exits non-zero):
    beside ``scaled_dot_product_attention`` on the same inputs (a yardstick the
    port never calls; its fully masked rows differ).
 4. Serve 5 requests through ``Policy.infer`` with the full-width π₀.₅ model
-   (Gemma-2B + Gemma-300M, So400m/14, bf16, seeded random weights) at batch 1,
-   counting kernel launches per request (27 flash_mhsa, 198 flash_mha), and
-   check the actions: (50, 32) per request, finite, identical for identical
-   noise and different for other noise. The 5 requests are then served a
-   second time (same actions required), to show the spread of the host-bound
-   wall time within one run.
+   (Gemma-2B + Gemma-300M, So400m/14, bf16, seeded random weights) at batch 1.
+   ``infer`` runs the sampler as a CUDA graph: the first request runs it once
+   eagerly and captures it, which counts one request's kernel launches (27
+   flash_mhsa, 198 flash_mha); the others replay it and call no kernel
+   wrapper. An eager ``model.sample_actions`` on the same staged inputs and
+   noise launches the same counts and gives bit-equal actions. The actions
+   are (50, 32) per request, finite, identical for identical noise and
+   different for other noise. The 5 requests are then served a second time
+   (same actions required), to show the spread of the wall time within one
+   run.
 5. Reference at full width: the same architecture in f32 samples one chunk on
    the card (kernels) and on the host CPU (plain versions) from the same
    weights and noise; the two must agree within 1e-3. The same weights rounded
@@ -93,14 +97,16 @@ Phases, none of which catches an error (any failure exits non-zero):
     count above 64; the forward orientation the split-contraction kernel at
     M = 50 and the backward's the ``mma.sync`` tiles there.
 11. int8 serving: the model of phase 4 with ``quantize_inference_tree`` applied
-    serves the same 5 requests; per request 990 ``row_quant`` and 1188
+    serves the same 5 requests through a new policy (graphed as in phase 4);
+    per request, at capture and eagerly, 990 ``row_quant`` and 1188
     ``int8_matmul`` launches (18 layers x (1 prefill + 10 denoise steps) x 5
-    row quantizations and 6 products), none of ``int8_matmul_lora``. The actions
-    are compared with the bf16 model's on the same weights and noise, and the
-    difference printed (int8 perturbs the actions by design). A sixth request
-    runs under torch.profiler: its 108 prefill products must run on the
-    ``wgmma`` kernel and its 1,080 denoise products on the split-contraction
-    kernel, none on the ``mma.sync`` tiles.
+    row quantizations and 6 products), none of ``int8_matmul_lora``; graphed
+    and eager actions bit-equal. The actions are compared with the bf16
+    model's on the same weights and noise, and the difference printed (int8
+    perturbs the actions by design). A sixth request, a replay, runs under
+    torch.profiler: its 108 prefill products must run on the ``wgmma`` kernel
+    and its 1,080 denoise products on the split-contraction kernel, none on
+    the ``mma.sync`` tiles. The requests are served again for the spread.
 12. The LoRA fine-tune over a frozen int8 base at full width, depth cut to 2,
     f32 activations, batch 2, fixed draws: the card (kernels) against the host
     CPU (plain versions) on the same codes. Card and host differ by f32
@@ -121,6 +127,22 @@ Phases, none of which catches an error (any failure exits non-zero):
     at the attention sites) and in the backward's orientation for every ``dx``,
     and every K5 launch must be its register kernel, with the column scale for
     each ``dx`` (365 a step).
+14. Serving through the entry points a robot operator calls: the seeded bf16
+    π₀.₅ is written to ``model.safetensors`` in a temporary directory with
+    synthetic quantile norm stats under ``assets/<asset_id>``;
+    ``create_trained_policy(get_config("pi05_flatten_fold_normal"), ckpt,
+    prompt_buckets=[64, 128], warmup=True)`` reads it and captures the
+    sampler of each bucket and of the full 200-token prompt; 20 raw Agilex
+    requests (three 3x480x640 uint8 cameras, a 14-dim state, the task prompt)
+    with one noise give (50, 14) finite actions (other noise other actions),
+    with the p50 and p90 of the wall time and of ``policy_timing``. On the
+    first request's staged inputs: the graph's x_0 bit-equal to the eager
+    ``sample_actions``, the capture's launch counts equal to the eager
+    request's, the bucket's x_0 within phase 5's bf16 bounds of the full
+    prompt's, and a profiled replay launching the eager request's attention
+    kernels by name and count (its device time and kernel count printed).
+    Then all of it again with ``quantize=True``, whose replay must run the
+    prefill products on ``wgmma`` and the denoise products on split-K.
 
 Build: ptxas's register and spill lines of every kernel are printed; the
 tensor-core attention kernels, the ``wgmma`` and split int8 kernels, the
@@ -138,14 +160,17 @@ on a [7744, 16384] bf16 chunk, and as ``row_quant_colscale`` on the gate/up ``dx
 under keys suffixed ``_r64``, K4b its ``dx``, and K4b on the action expert's down in a denoise step, M = 50,
 under keys suffixed ``_m50``: int8 serving's split-contraction kernel);
 ``launches`` from the first 5-step run of the path that runs the kernel: phase
-9 for the attention and AdamW kernels, phase 13 for the int8 ones. The last
-line is ``{"ok": true, "device": {...}}``.
+9 for the attention and AdamW kernels, phase 13 for the int8 ones;
+``launches_serving`` and ``launches_serving_entry`` the launches of the graph
+the requests of phases 4 / 11 and 14 replayed, counted at its capture by the
+first request with the counts set to 0 just before. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -333,10 +358,44 @@ def _request_inputs(rng: np.random.Generator) -> dict:
     }
 
 
+def _device_inputs(staged: dict) -> dict:
+    """Batched staged numpy inputs (``Policy.stage_inputs``) as CUDA tensors."""
+    return {k: _device_inputs(v) if isinstance(v, dict) else torch.from_numpy(np.array(v)).cuda()
+            for k, v in staged.items()}
+
+
+def _eager_sample(model, staged: dict, noise: np.ndarray) -> tuple[np.ndarray, dict]:
+    """``model.sample_actions`` (eager, no graph) on staged inputs and noise: x_0 [B, 50, 32] and its launches."""
+    from kai0_tpu_torch.models.model import Observation
+    from kai0_tpu_torch.policies import graphs
+
+    obs = Observation.from_dict(_device_inputs(staged))
+    noise = torch.from_numpy(noise.reshape(1, *noise.shape[-2:])).cuda()
+    before = graphs.launch_counts()
+    x0 = model.sample_actions(obs, noise=noise)
+    torch.cuda.synchronize()
+    return x0.cpu().numpy(), {k: v - before[k] for k, v in graphs.launch_counts().items() if v - before[k]}
+
+
+def _served_launches(policy, launches: list[dict], want: dict, label: str) -> dict:
+    """Phases 4 and 11: the first request captures the sampler (after one eager run of it on a side stream), the
+    others replay it and call no kernel wrapper; the capture counts one request's kernels. The counts were set to 0
+    just before the first request; returns the launches of the graph the requests replayed, at its capture."""
+    (graph,) = policy.graphs.values()
+    capture = {k: v for k, v in graph.capture_launches.items() if v}
+    _check(capture == want, f"{label}: launches at capture {capture}, want {want}")
+    _check(launches[0] == {k: 2 * v for k, v in want.items()}, f"{label} 0 (eager run + capture): {launches[0]}")
+    _check(not any(any(x.values()) for x in launches[1:]), f"{label}s 1-: a replay called kernel wrappers {launches}")
+    total = {k: v for k, v in _read_launches().items() if v}
+    _check(total == {k: 2 * v for k, v in want.items()}, f"{label}s: launches since the counts were set to 0 {total}")
+    print(f"{label}s: captured in {graph.capture_seconds:.2f}s with launches {capture}; replays launch none from Python")
+    return capture
+
+
 def serve():
-    """Phase 4; returns its launches and what phase 11 serves again in int8 (model, policy, inputs, actions)."""
+    """Phase 4; returns its launches and what phase 11 serves again in int8 (model, inputs, noises, plan, actions)."""
     from kai0_tpu_torch.models.pi0 import Pi0, Pi0Config
-    from kai0_tpu_torch.ops import flash_attention as fa
+    from kai0_tpu_torch.policies import graphs
     from kai0_tpu_torch.policies.policy import Policy
 
     config = Pi0Config(pi05=True)
@@ -354,10 +413,10 @@ def serve():
     noises = [rng.standard_normal((50, 32)).astype(np.float32) for _ in range(2)]
     plan = [0] * (REQUESTS - 1) + [1]  # noise index per request: repeats, then other noise
 
-    fa.reset_launches()
-    actions, per_request = [], []
+    actions, per_request, launches = [], [], []
+    _reset_launches()
     for i, noise_idx in enumerate(plan):
-        before = dict(fa.LAUNCHES)
+        before = graphs.launch_counts()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -365,18 +424,21 @@ def serve():
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1000
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        launches = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+        launches.append({k: v - before[k] for k, v in graphs.launch_counts().items() if v - before[k]})
         print(f"request {i}: wall_ms={wall_ms:.2f} infer_ms={out['policy_timing']['infer_ms']:.2f} "
-              f"peak_mem_gib={peak_gib:.3f} launches={launches}")
-        _check(launches == {"flash_mhsa": 27, "flash_mha": 18 + 10 * 18, "flash_mha_bwd": 0, "flash_mhsa_bwd": 0},
-               f"request {i}: launches {launches}")
-        _check(not any(_int8_launches().values()), f"request {i}: the bf16 model launched int8 kernels")
+              f"peak_mem_gib={peak_gib:.3f} launches={launches[-1]}")
         a = out["actions"]
         _check(a.shape == (50, 32) and a.dtype == np.float32, f"actions {a.shape} {a.dtype}")
         _check(np.isfinite(a).all(), "non-finite actions")
         actions.append(a)
         per_request.append(wall_ms)
-    serve_launches = dict(fa.LAUNCHES)
+    want = {"flash_mhsa": 27, "flash_mha": 18 + 10 * 18}
+    serve_launches = _served_launches(policy, launches, want, "request")
+    eager, eager_launches = _eager_sample(model, policy.stage_inputs(obs), noises[0])
+    _check(eager_launches == want, f"eager request: launches {eager_launches}, want {want}")
+    _check(np.array_equal(eager[0], actions[0]), "the graphed actions differ from the eager sampler's")
+    print("graphed actions bit-equal to the eager sampler's on the same inputs and noise; eager launches "
+          f"{eager_launches}")
     again = []
     for i, noise_idx in enumerate(plan):
         torch.cuda.synchronize()
@@ -390,9 +452,10 @@ def serve():
     _check(not np.array_equal(actions[4], actions[0]), "other noise gave the same actions")
     _check(np.abs(actions[0] - noises[0]).max() > 1e-2, "actions did not move from the noise")
     print(f"serving: median wall_ms={statistics.median(per_request[1:]):.2f} over requests 1-{REQUESTS - 1} "
-          f"{[round(x, 2) for x in per_request[1:]]} (request 0 includes first-use set-up); the same requests again: "
+          f"{[round(x, 2) for x in per_request[1:]]} (request 0 includes the capture); the same requests again: "
           f"median wall_ms={statistics.median(again[1:]):.2f} {[round(x, 2) for x in again]}")
-    return serve_launches, (model, policy, obs, noises, plan, actions)
+    del policy
+    return serve_launches, (model, obs, noises, plan, actions)
 
 
 def _int8_launches() -> dict:
@@ -402,10 +465,13 @@ def _int8_launches() -> dict:
 
 
 def serve_int8(served) -> dict:
-    """Phase 11: the same model with its Gemma matmul weights quantized, the same requests."""
+    """Phase 11: the same model with its Gemma matmul weights quantized, the same requests (a new policy: the bf16
+    graph is gone with the old one)."""
     from kai0_tpu_torch.ops import quant
+    from kai0_tpu_torch.policies import graphs
+    from kai0_tpu_torch.policies.policy import Policy
 
-    model, policy, obs, noises, plan, bf16_actions = served
+    model, obs, noises, plan, bf16_actions = served
     t0 = time.perf_counter()
     quant.quantize_inference_tree(model)
     torch.cuda.synchronize()
@@ -414,28 +480,32 @@ def serve_int8(served) -> dict:
     _check(holders == 2 * 18 * 6, f"{holders} quantized holders, want {2 * 18 * 6}")
     print(f"int8 serving: {holders} int8 holders (q, kv, out, gate, up, down of both experts' 18 layers), quantized in "
           f"{time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    policy = Policy(model, model.config, device="cuda")
+    actions, per_request, launches = [], [], []
     _reset_launches()
-    actions, per_request = [], []
     for i, noise_idx in enumerate(plan):
-        before = _read_launches()
+        before = graphs.launch_counts()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = policy.infer(obs, noise=noises[noise_idx])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1000
-        launches = {k: v - before[k] for k, v in _read_launches().items() if v - before[k]}
+        launches.append({k: v - before[k] for k, v in graphs.launch_counts().items() if v - before[k]})
         print(f"int8 request {i}: wall_ms={wall_ms:.2f} infer_ms={out['policy_timing']['infer_ms']:.2f} "
-              f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.3f} launches={launches}")
-        want = {"flash_mhsa": 27, "flash_mha": 18 + 10 * 18, **{k: v for k, v in INT8_REQUEST_LAUNCHES.items() if v}}
-        _check(launches == want, f"int8 request {i}: launches {launches}, want {want}")
+              f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.3f} launches={launches[-1]}")
         a = out["actions"]
         _check(a.shape == (50, 32) and a.dtype == np.float32 and np.isfinite(a).all(), "int8 actions")
         actions.append(a)
         per_request.append(wall_ms)
-    launches = _read_launches()
-    # One more request under the profiler: the prefill's products (M = 968) on the wgmma kernel, the denoise
-    # steps' (M = 50) on the split kernel, nothing on the mma.sync tiles.
+    want = {"flash_mhsa": 27, "flash_mha": 18 + 10 * 18, **{k: v for k, v in INT8_REQUEST_LAUNCHES.items() if v}}
+    capture = _served_launches(policy, launches, want, "int8 request")
+    eager, eager_launches = _eager_sample(model, policy.stage_inputs(obs), noises[0])
+    _check(eager_launches == want, f"int8 eager request: launches {eager_launches}, want {want}")
+    _check(np.array_equal(eager[0], actions[0]), "int8: the graphed actions differ from the eager sampler's")
+    print(f"int8: graphed actions bit-equal to the eager sampler's; eager launches {eager_launches}")
+    # One more request under the profiler, a replay: the prefill's products (M = 968) on the wgmma kernel, the
+    # denoise steps' (M = 50) on the split kernel, nothing on the mma.sync tiles.
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         again = policy.infer(obs, noise=noises[plan[0]])["actions"]
         torch.cuda.synchronize()
@@ -443,17 +513,37 @@ def serve_int8(served) -> dict:
     counts = _check_int8_orientations(_kernels_named(prof, "int8_mm"), "profiled int8 request")
     want = {"wgmma nt": 18 * 6, "wgmma nn": 0, "splitk nt": 18 * 10 * 6, "mma.sync nt": 0, "mma.sync nn": 0}
     _check(counts == want, f"int8 request: launches by kernel {counts}, want {want}")
+    _check_replayed_row_quant(prof, True, "profiled int8 request")
+    again_ms = []
+    for noise_idx in plan:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        policy.infer(obs, noise=noises[noise_idx])
+        torch.cuda.synchronize()
+        again_ms.append((time.perf_counter() - t) * 1000)
     for i in (1, 2, 3):
         _check(np.array_equal(actions[i], actions[0]), f"int8 request {i}: same noise, different actions")
     _check(not np.array_equal(actions[4], actions[0]), "int8: other noise gave the same actions")
     diff = max(float(np.abs(a - b).max()) for a, b in zip(actions, bf16_actions, strict=True))
     _check(0 < diff < 0.5 * float(np.abs(bf16_actions[0]).max()), f"int8 actions against bf16 actions: {diff}")
     print(f"int8 serving: median wall_ms={statistics.median(per_request[1:]):.2f} over requests 1-{REQUESTS - 1} "
-          f"{[round(x, 2) for x in per_request[1:]]}; actions against the bf16 model's on the same weights and noise: "
-          f"max_abs_diff={diff:.4e} (|actions| max {np.abs(bf16_actions[0]).max():.3f})")
+          f"{[round(x, 2) for x in per_request[1:]]}; the same requests again: median wall_ms="
+          f"{statistics.median(again_ms[1:]):.2f} {[round(x, 2) for x in again_ms]}; actions against the bf16 model's "
+          f"on the same weights and noise: max_abs_diff={diff:.4e} (|actions| max {np.abs(bf16_actions[0]).max():.3f})")
     del served, policy, model
     torch.cuda.empty_cache()
-    return launches
+    return capture
+
+
+def _check_replayed_row_quant(prof, quantize: bool, label: str) -> None:
+    """K5 in a profiled replay: one request's 990 launches in int8 (5 a layer and pass), none in bf16."""
+    k5 = _kernels_named(prof, "row_quant")
+    launched = sum(count for _, count in k5.values())
+    want = INT8_REQUEST_LAUNCHES["row_quant"] if quantize else 0
+    _check(launched == want, f"{label}: {launched} row_quant launches {k5}, want {want}")
+    _check(quantize or not _kernels_named(prof, "int8_mm"), f"{label}: a bf16 request launched int8 products")
+    print(f"  row_quant kernels of the {label}: {launched} " + "; ".join(
+        f"{k} {ms:.2f} ms x{count}" for k, (ms, count) in k5.items()))
 
 
 def full_width_reference() -> None:
@@ -469,7 +559,6 @@ def full_width_reference() -> None:
     room for that, while a wrong kernel moves them by O(|actions|).
     """
     from kai0_tpu_torch.models.pi0 import Pi0, Pi0Config
-    from kai0_tpu_torch.ops import flash_attention as fa
     from kai0_tpu_torch.policies.policy import Policy
 
     config = Pi0Config(pi05=True, dtype="float32")
@@ -479,14 +568,18 @@ def full_width_reference() -> None:
     rng = np.random.default_rng(1)
     obs = _request_inputs(rng)
     noise = rng.standard_normal((50, 32)).astype(np.float32)
-    on_card = Policy(model, config, device="cuda").infer(obs, noise=noise)
+    card_policy = Policy(model, config, device="cuda")
+    on_card = card_policy.infer(obs, noise=noise)
+    del card_policy  # and its graph
     bf16_config = Pi0Config(pi05=True)
     bf16_model = Pi0(bf16_config, device="cuda", param_dtype=torch.bfloat16).eval()
     bf16_model.load_state_dict(model.state_dict())  # the same weights, rounded to bf16
-    fa.reset_launches()
-    on_card_bf16 = Policy(bf16_model, bf16_config, device="cuda").infer(obs, noise=noise)
-    _check(fa.LAUNCHES["flash_mhsa"] == 27 and fa.LAUNCHES["flash_mha"] == 198, f"bf16 sample launches {fa.LAUNCHES}")
-    del bf16_model
+    bf16_policy = Policy(bf16_model, bf16_config, device="cuda")
+    on_card_bf16 = bf16_policy.infer(obs, noise=noise)
+    (graph,) = bf16_policy.graphs.values()
+    _check({k: graph.capture_launches[k] for k in ("flash_mhsa", "flash_mha")} == {"flash_mhsa": 27, "flash_mha": 198},
+           f"bf16 sample launches at capture {graph.capture_launches}")
+    del bf16_policy, bf16_model, graph
     model.to("cpu")
     torch.cuda.empty_cache()
     on_host = Policy(model, config, device="cpu").infer(obs, noise=noise)
@@ -1334,6 +1427,179 @@ def train(kind: str = "full") -> tuple[dict, list]:
     return run_launches, runs[0]
 
 
+ENTRY_CONFIG = "pi05_flatten_fold_normal"
+ENTRY_BUCKETS = [64, 128]
+ENTRY_REQUESTS = 20
+AGILEX_CAMERAS = ("top_head", "hand_left", "hand_right")
+
+
+def _clocks() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+def _percentiles(values: list[float]) -> str:
+    return f"p50={np.percentile(values, 50):.2f} p90={np.percentile(values, 90):.2f}"
+
+
+def _serve_entry_once(cfg, ckpt: str, quantize: bool) -> dict:
+    """One ``create_trained_policy`` of phase 14 and its checks; returns the launches of the graph the requests
+    replayed, counted at its capture by the first request with every count set to 0 just before."""
+    from kai0_tpu_torch.policies import graphs, policy_config
+
+    label = "int8" if quantize else "bf16"
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    policy = policy_config.create_trained_policy(cfg, ckpt, prompt_buckets=ENTRY_BUCKETS, warmup=True, quantize=quantize)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t
+    capture_s = sum(g.capture_seconds for g in policy.graphs.values())
+    print(f"entry {label}: create_trained_policy({ENTRY_CONFIG!r}, quantize={quantize}, prompt_buckets={ENTRY_BUCKETS}, "
+          f"warmup=True) in {total_s:.2f}s: {len(policy.graphs)} captures {capture_s:.2f}s, reading the checkpoint"
+          f"{', quantizing' if quantize else ''} and the example request {total_s - capture_s:.2f}s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    _check(len(policy.graphs) == len(ENTRY_BUCKETS) + 1, f"entry {label}: {len(policy.graphs)} graphs after warmup")
+
+    rng = np.random.default_rng(14)
+    noise = rng.standard_normal((50, 32)).astype(np.float32)
+    requests = [{"images": {cam: rng.integers(0, 256, (3, 480, 640), dtype=np.uint8) for cam in AGILEX_CAMERAS},
+                 "state": rng.uniform(-1, 1, 14).astype(np.float32), "prompt": cfg.data.default_prompt}
+                for _ in range(ENTRY_REQUESTS)]
+    walls, timing, outs = [], {"infer_ms": [], "transform_ms": [], "stage_ms": []}, []
+    # The requests' bucket graph from warmup is dropped, so that the first request captures it again with every
+    # count at 0: the counts read after the requests are its eager run and its capture, and the replays add none.
+    staged = policy.stage_inputs(requests[0])
+    del policy.graphs[graphs.signature(staged)]
+    _reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    policy.infer(requests[0], noise=noise)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1000
+    clocks = [_clocks()]
+    for obs in requests:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = policy.infer(obs, noise=noise)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1000)
+        for key in timing:
+            timing[key].append(out["policy_timing"][key])
+        a = out["actions"]
+        # Unnormalize maps the actions with the f64 stats of norm_stats.json into f64, as the JAX package's does.
+        _check(a.shape == (50, 14) and a.dtype == np.float64 and np.isfinite(a).all(),
+               f"entry {label}: actions {a.shape} {a.dtype}, finite {np.isfinite(a).all()}")
+        outs.append(a)
+    clocks.append(_clocks())
+    served = {k: v for k, v in _read_launches().items() if v}
+    graph = policy.graph_for(staged)
+    capture = {k: v for k, v in graph.capture_launches.items() if v}
+    _check(len(policy.graphs) == len(ENTRY_BUCKETS) + 1 and served == {k: 2 * v for k, v in capture.items()},
+           f"entry {label}: launches of the requests {served}, of the one capture {capture}")
+    print(f"entry {label}: the first request captured its bucket's graph in {first_ms:.2f} ms (capture "
+          f"{graph.capture_seconds:.2f}s); launches since the counts were set to 0: {served} = the eager run and the "
+          f"capture of that graph; the {ENTRY_REQUESTS} requests after it replayed and launched none from Python")
+    other = policy.infer(requests[0], noise=rng.standard_normal((50, 32)).astype(np.float32))["actions"]
+    _check(not np.array_equal(other, outs[0]), f"entry {label}: other noise gave the same actions")
+    print(f"entry {label}: {ENTRY_REQUESTS} raw Agilex requests (3 x 3x480x640 uint8 cameras, 14-dim state, prompt "
+          f"{cfg.data.default_prompt!r}), one noise: wall_ms {_percentiles(walls)}; "
+          + "; ".join(f"{k} {_percentiles(v)}" for k, v in timing.items())
+          + f"; SM clock, max SM clock, power draw, temperature before / after: {clocks[0]} / {clocks[1]}")
+
+    # The graph against the eager sampler, on the staged inputs of the first request (its prompt bucket).
+    bucket = staged["tokenized_prompt"].shape[-1]
+    _check(bucket in ENTRY_BUCKETS, f"entry {label}: the prompt took the bucket {bucket}")
+    graph.stage(staged, noise[None])
+    graph.replay()
+    x0 = graph.fetch()
+    eager, eager_launches = _eager_sample(policy.model, staged, noise)
+    _check(np.array_equal(eager, x0), f"entry {label}: the graphed x_0 differs from the eager sampler's")
+    _check(capture == eager_launches, f"entry {label}: launches at capture {capture}, eager {eager_launches}")
+    print(f"entry {label}: bucket {bucket}: graphed x_0 bit-equal to the eager sampler's; launches at capture = "
+          f"eager launches = {eager_launches}")
+
+    # The bucket against the full prompt length (the tokenizer's padding put back; its graph came from warmup).
+    pad = ((0, 0), (0, 200 - bucket))
+    full = {**staged, "tokenized_prompt": np.pad(staged["tokenized_prompt"], pad),
+            "tokenized_prompt_mask": np.pad(staged["tokenized_prompt_mask"], pad)}
+    full_graph = policy.graph_for(full)
+    _check(len(policy.graphs) == len(ENTRY_BUCKETS) + 1, f"entry {label}: the full prompt length had no graph")
+    full_graph.stage(full, noise[None])
+    full_graph.replay()
+    x0_full = full_graph.fetch()
+    diff = np.abs(x0 - x0_full)
+    ref_max, ref_mean = float(np.abs(x0_full).max()), float(np.abs(x0_full).mean())
+    print(f"entry {label}: bucket {bucket} against the full 200-token prompt: max_abs_diff={diff.max():.4e} "
+          f"mean_abs_diff={diff.mean():.4e} (|x_0| max {ref_max:.3f}, mean {ref_mean:.3f}; limits "
+          f"{BF16_SAMPLE_TOL['max'] * ref_max:.4e}, {BF16_SAMPLE_TOL['mean'] * ref_mean:.4e})")
+    _check(diff.max() <= BF16_SAMPLE_TOL["max"] * ref_max and diff.mean() <= BF16_SAMPLE_TOL["mean"] * ref_mean,
+           f"entry {label}: the bucket moved x_0 too far")
+
+    # One replayed request and one eager request under the profiler.
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof_replay:
+        graph.stage(staged, noise[None])
+        graph.replay()
+        graph.fetch()
+    with torch.profiler.profile(activities=activities) as prof_eager:
+        _eager_sample(policy.model, staged, noise)
+    replay_families, replay_ms, replay_attention = _profile_families(prof_replay)
+    eager_families, eager_ms, eager_attention = _profile_families(prof_eager)
+    by_count = lambda kernels: {k: count for k, (_, count) in kernels.items()}  # noqa: E731
+    _check(by_count(replay_attention) == by_count(eager_attention) and replay_attention,
+           f"entry {label}: attention kernels of the replay {by_count(replay_attention)}, eager {by_count(eager_attention)}")
+    kernels = sum(count for _, count in replay_families.values())
+    print(f"entry {label}: one replayed request: {replay_ms:.2f} ms of device time in {kernels} kernels (wall p50 "
+          f"{np.percentile(walls, 50):.2f} ms, infer_ms p50 {np.percentile(timing['infer_ms'], 50):.2f}); eager: "
+          f"{eager_ms:.2f} ms in {sum(c for _, c in eager_families.values())} kernels; by family (replay): "
+          + "; ".join(f"{fam} {ms:.2f} ms x{count}" for fam, (ms, count) in sorted(replay_families.items(),
+                                                                                 key=lambda kv: -kv[1][0])))
+    print(f"  attention kernels of the replay (= eager): {by_count(replay_attention)}")
+    if quantize:
+        counts = _check_int8_orientations(_kernels_named(prof_replay, "int8_mm"), f"entry {label} replay")
+        want = {"wgmma nt": 18 * 6, "wgmma nn": 0, "splitk nt": 18 * 10 * 6, "mma.sync nt": 0, "mma.sync nn": 0}
+        _check(counts == want, f"entry {label}: int8 kernels of the replay {counts}, want {want}")
+    _check_replayed_row_quant(prof_replay, quantize, f"entry {label} replay")
+    del policy, graph, full_graph
+    torch.cuda.empty_cache()
+    return capture
+
+
+def serve_entry() -> dict:
+    """Phase 14: serving through the entry points a robot operator calls, at full width, bf16 then int8."""
+    import tempfile
+
+    from kai0_tpu_torch import interop
+    from kai0_tpu_torch.models.pi0 import Pi0
+    from kai0_tpu_torch.shared import normalize
+    from kai0_tpu_torch.training import config as train_config
+
+    cfg = train_config.get_config(ENTRY_CONFIG)
+    asset_id = cfg.data.create(cfg.assets_dirs, cfg.model).asset_id
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="kai0_checkpoint_") as ckpt:
+        t = time.perf_counter()
+        model = Pi0(cfg.model, device="cuda", param_dtype=torch.bfloat16).init_weights(
+            torch.Generator(device="cuda").manual_seed(14))
+        path = interop.save_torch_checkpoint(model, ckpt)
+        del model
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(15)
+        stats = {}
+        for key in ("state", "actions"):
+            lo = rng.uniform(-1.5, -0.5, 32)
+            stats[key] = normalize.NormStats(mean=np.zeros(32), std=np.ones(32), q01=lo, q99=lo + rng.uniform(1, 3, 32))
+        normalize.save(pathlib.Path(ckpt) / "assets" / asset_id, stats)
+        print(f"entry: seeded bf16 pi05 written to {path.name} ({path.stat().st_size / 1e9:.3f} GB) with synthetic "
+              f"quantile norm stats under assets/{asset_id} in {time.perf_counter() - t:.1f}s")
+        for quantize in (False, True):
+            launches["int8" if quantize else "bf16"] = _serve_entry_once(cfg, ckpt, quantize)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is false; the port runs only on a CUDA card", file=sys.stderr)
@@ -1374,6 +1640,7 @@ def main() -> int:
     check_lora_int8_gradients()
     launches, _ = train("full")
     int8_launches, _ = train("lora_int8")
+    entry_launches = serve_entry()
 
     sources = {
         "flash_mha": ("kai0_tpu_torch/ops/csrc/flash_mqa_fwd.cu", "kai0_tpu/ops/pallas_attention.py:109"),
@@ -1394,12 +1661,19 @@ def main() -> int:
         _check(path_launches[name] > 0, f"{name} was not launched on its training path")
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": path_launches[name], **record[name]}
+        # launches_serving: the capture of the graph phase 4's requests replayed (phase 11's for the int8 kernels);
+        # launches_serving_entry: the same in phase 14 (the int8 policy's for the int8 kernels). Each is counted from 0
+        # set just before the requests; phases 11 and 14 hold a profiled replay's kernels to these counts
         if name in ("flash_mha", "flash_mhsa"):
-            _check(serve_launches[name] > 0 and int8_launches[name] > 0, f"{name} was not launched on every path")
+            _check(min(serve_launches[name], int8_launches[name], entry_launches["bf16"][name]) > 0,
+                   f"{name} was not launched on every path")
             entry["launches_serving"] = serve_launches[name]
+            entry["launches_serving_entry"] = entry_launches["bf16"][name]
         if name in ("row_quant", "int8_matmul"):
-            _check(int8_serve_launches[name] > 0, f"{name} was not launched on the int8 serving path")
+            _check(min(int8_serve_launches[name], entry_launches["int8"][name]) > 0,
+                   f"{name} was not launched on the int8 serving paths")
             entry["launches_serving"] = int8_serve_launches[name]
+            entry["launches_serving_entry"] = entry_launches["int8"][name]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,31 @@
 """Model inputs and observation preprocessing, PyTorch.
 
-Counterpart of ``kai0_tpu/models/model.py``: ``Observation`` with the
-nested-dict contract of ``from_dict`` (uint8 images mapped to [-1, 1]) and
-``preprocess_observation`` with its train branch (augmentation, crop and
-rotation only where ``"wrist"`` is not in the camera key). Resizing is not
-ported: images must already be 224×224.
+Counterpart of ``kai0_tpu/models/model.py``: the ``ModelType`` enum,
+``Observation`` with the nested-dict contract of ``from_dict`` (uint8 images
+mapped to [-1, 1]) and ``preprocess_observation``: images that are not
+224×224 are resized with padding (``image_tools.resize_with_pad``, antialiased
+as ``jax.image.resize``), and the train branch augments them (crop and
+rotation only where ``"wrist"`` is not in the camera key).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
 
 import torch
 
 from kai0_tpu_torch.models import augment as _augment
+from kai0_tpu_torch.shared import image_tools as _image_tools
+
+
+class ModelType(enum.Enum):
+    PI0 = "pi0"
+    PI0_FAST = "pi0_fast"
+    PI05 = "pi05"
+    PI0_RTC = "pi0_rtc"
+    PI05_RTC = "pi05_rtc"
+
 
 # The model always expects these images.
 IMAGE_KEYS = (
@@ -62,7 +74,7 @@ def preprocess_observation(
     augment_params: dict[str, dict[str, torch.Tensor]] | None = None,
     generator: torch.Generator | None = None,
 ) -> Observation:
-    """Check the images, augment them when ``train``, default-fill missing image masks with True.
+    """Resize images that are not 224×224, augment them when ``train``, default-fill missing image masks with True.
 
     In training each camera's parameters come from ``augment_params[key]`` when
     given (see ``augment.draw_augment_params``), else they are drawn from
@@ -75,9 +87,7 @@ def preprocess_observation(
     for key in IMAGE_KEYS:
         image = observation.images[key]
         if tuple(image.shape[1:3]) != IMAGE_RESOLUTION:
-            raise ValueError(
-                f"image {key} is {tuple(image.shape[1:3])}, the port needs {IMAGE_RESOLUTION} (resizing is not ported)"
-            )
+            image = _image_tools.resize_with_pad(image, *IMAGE_RESOLUTION)
         if train:
             if augment_params is not None:
                 params = augment_params[key]

@@ -56,6 +56,10 @@ class Pi0Config:
             object.__setattr__(self, "discrete_state_input", self.pi05)
 
     @property
+    def model_type(self) -> _model.ModelType:
+        return _model.ModelType.PI05 if self.pi05 else _model.ModelType.PI0
+
+    @property
     def paligemma_config(self) -> _gemma.Config:
         return _gemma.get_config(self.paligemma_variant)
 
@@ -74,6 +78,21 @@ class Pi0Config:
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    def fake_obs(self, batch_size: int = 1) -> dict[str, np.ndarray]:
+        """A batch of ones in the model-facing form the transform chain produces (``Observation.from_dict``'s input).
+
+        ``kai0_tpu``'s ``fake_obs`` is the ``Observation`` of ones; the port stages
+        uint8 images, so its images are 255, which ``from_dict`` maps to that 1.0.
+        """
+        images = np.full((batch_size, *_model.IMAGE_RESOLUTION, 3), 255, dtype=np.uint8)
+        return {
+            "image": {key: images for key in _model.IMAGE_KEYS},
+            "image_mask": {key: np.ones(batch_size, dtype=bool) for key in _model.IMAGE_KEYS},
+            "state": np.ones((batch_size, self.action_dim), dtype=np.float32),
+            "tokenized_prompt": np.ones((batch_size, self.max_token_len), dtype=np.int32),
+            "tokenized_prompt_mask": np.ones((batch_size, self.max_token_len), dtype=bool),
+        }
 
     def freeze_filter(self) -> Callable[[str], bool]:
         """Predicate on the port's parameter names (True = frozen): the JAX filter on the path each name maps to."""
@@ -215,17 +234,13 @@ class Pi0(nn.Module):
 
         tokens = [image_tokens[i] for i in range(c)]
         input_mask = [obs.image_masks[name][:, None].expand(b, tokens_per_image) for name in image_names]
-        ar_mask = [False] * (c * tokens_per_image)
         if obs.tokenized_prompt is not None:
             prompt = _gemma.embed(self._pg.language_model, obs.tokenized_prompt, self.config.torch_dtype)
             tokens.append(prompt)
             input_mask.append(obs.tokenized_prompt_mask)
-            ar_mask += [False] * prompt.shape[1]
-        return (
-            torch.cat(tokens, dim=1),
-            torch.cat(input_mask, dim=1),
-            torch.tensor(ar_mask, dtype=torch.bool, device=images.device),
-        )
+        tokens = torch.cat(tokens, dim=1)
+        # The prefix attends bidirectionally; made on the device, so that a CUDA graph can capture it.
+        return tokens, torch.cat(input_mask, dim=1), torch.zeros(tokens.shape[1], dtype=torch.bool, device=images.device)
 
     def embed_suffix(self, obs: _model.Observation, noisy_actions: torch.Tensor, timestep: torch.Tensor):
         """Noisy actions + time (π₀.₅) -> (tokens [B, H, D1], input_mask, ar_mask, adarms_cond)."""
@@ -235,7 +250,7 @@ class Pi0(nn.Module):
         time_emb = F.silu(_linear(time_emb, self.time_mlp_out))
         horizon = self.config.action_horizon
         input_mask = torch.ones(action_tokens.shape[:2], dtype=torch.bool, device=action_tokens.device)
-        ar_mask = torch.tensor([True] + [False] * (horizon - 1), dtype=torch.bool, device=action_tokens.device)
+        ar_mask = torch.arange(horizon, device=action_tokens.device) == 0  # [True, False, ...]: made on the device
         return action_tokens, input_mask, ar_mask, time_emb
 
     # -- training ----------------------------------------------------------------------
@@ -327,6 +342,35 @@ class Pi0(nn.Module):
         )
         return _linear(suffix_out[:, -self.config.action_horizon :].float(), self.action_out_proj)
 
+    def time_grid(self, num_steps: int) -> torch.Tensor:
+        """The Euler steps' times on the model's device: 1, 1 + dt, ... with dt = -1/num_steps.
+
+        They follow the JAX loop's carry: ``time = f32(time) + f32(dt)`` while
+        ``time >= -dt/2``, which gives ``num_steps`` steps. A device tensor made
+        once, so that a CUDA graph of the loop reads it instead of a host scalar.
+        """
+        dt = -1.0 / num_steps
+        times, time = [], 1.0
+        while time >= -dt / 2:
+            times.append(time)
+            time = float(np.float32(time) + np.float32(dt))
+        return torch.tensor(times, dtype=torch.float32, device=self.device)
+
+    @torch.inference_mode()
+    def denoise(self, observation: _model.Observation, noise: torch.Tensor, times: torch.Tensor) -> torch.Tensor:
+        """From preprocessing to x_0: the prefix pass and its KV cache, then one Euler step per entry of ``times``.
+
+        Launches kernels only, reading ``noise`` and ``times`` (``time_grid``) on
+        the device: ``policies/graphs.py`` captures it as one CUDA graph.
+        """
+        observation = _model.preprocess_observation(observation)
+        dt = -1.0 / times.shape[0]
+        kv_cache, prefix_mask = self.compute_prefix_kv_cache(observation)
+        x_t = noise.to(torch.float32)
+        for step in range(times.shape[0]):
+            x_t = x_t + dt * self.compute_velocity(observation, kv_cache, prefix_mask, x_t, times[step])
+        return x_t
+
     @torch.inference_mode()
     def sample_actions(
         self,
@@ -339,18 +383,10 @@ class Pi0(nn.Module):
         """Euler-integrate the flow from t=1 (noise) to t=0; returns actions [B, H, action_dim] f32.
 
         ``time`` is kept at f32 precision as the JAX loop carries it, and the stop
-        rule ``time >= -dt/2`` gives ``num_steps`` steps.
+        rule ``time >= -dt/2`` gives ``num_steps`` steps (``time_grid``).
         """
-        observation = _model.preprocess_observation(observation)
-        dt = -1.0 / num_steps
         batch_size = observation.state.shape[0]
         shape = (batch_size, self.config.action_horizon, self.config.action_dim)
         if noise is None:
             noise = torch.randn(shape, generator=generator, dtype=torch.float32, device=self.device)
-        kv_cache, prefix_mask = self.compute_prefix_kv_cache(observation)
-        x_t, time = noise.to(torch.float32), 1.0
-        while time >= -dt / 2:
-            t = torch.tensor(time, dtype=torch.float32, device=x_t.device)
-            x_t = x_t + dt * self.compute_velocity(observation, kv_cache, prefix_mask, x_t, t)
-            time = float(np.float32(time) + np.float32(dt))
-        return x_t
+        return self.denoise(observation, noise, self.time_grid(num_steps))

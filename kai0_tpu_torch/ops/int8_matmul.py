@@ -87,8 +87,20 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _split_k_buffers(device: torch.device, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The split kernel's int32 workspace and arrival counters for N columns, made zero once and left zero by it.
+
+    Made outside any CUDA graph capture: inside one, the zero fill would be
+    recorded into the graph and run only on replay, and the buffers would live
+    in the graph's pool, so eager calls would find them unset. A capture of a
+    product with a new N raises; run the captured work once eagerly first.
+    """
     key = (device, n)
     if key not in _SPLIT_K_BUFFERS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"int8_matmul: the split-K workspace for N={n} would be made inside a CUDA graph capture; "
+                "run the captured work once before capturing it"
+            )
         _SPLIT_K_BUFFERS[key] = (
             torch.zeros(SPLIT_K_MAX_ROWS * n, dtype=torch.int32, device=device),
             torch.zeros(-(-n // min(_SPLIT_K_TILES)), dtype=torch.int32, device=device),

@@ -1,0 +1,234 @@
+"""Train configs: the part that serving reads, and the one ``TrainConfig`` of the package.
+
+Counterpart of ``kai0_tpu/training/config.py``: frozen-dataclass configs
+(``AssetsConfig``, ``DataConfig``, the ``DataConfigFactory`` classes that
+assemble the transform chain and load norm stats at run time), the per-model
+``ModelTransformFactory`` (π₀.₅ only), ``TrainConfig`` and ``get_config`` over
+the named configs (``robot_configs.py``) with its did-you-mean message.
+
+``TrainConfig`` carries the fields serving reads (``name``, ``model``,
+``data``, ``assets_base_dir``, ``exp_name``, ``policy_metadata``,
+``assets_dirs``) and those the train step reads (``train_lib.train_step``),
+with the port's defaults. A named config whose model or data path the port
+does not have yet raises from ``get_config`` with the ROADMAP item that
+ports it.
+"""
+
+from __future__ import annotations
+
+import abc
+from collections.abc import Sequence
+import dataclasses
+import difflib
+import logging
+import pathlib
+from typing import Any, Protocol
+
+from kai0_tpu_torch import transforms as _transforms
+from kai0_tpu_torch.models import model as _model
+from kai0_tpu_torch.models import pi0 as pi0_config
+from kai0_tpu_torch.models import tokenizer as _tokenizer
+from kai0_tpu_torch.shared import normalize as _normalize
+from kai0_tpu_torch.training import optimizer as _optimizer
+
+logger = logging.getLogger("kai0_tpu_torch")
+
+ModelType = _model.ModelType
+
+# Model types the port does not serve yet, with the ROADMAP (Queue 1) item that ports them.
+_PENDING_MODEL_TYPES = {
+    ModelType.PI0: "the π₀ model (ROADMAP Queue 1 item 6)",
+    ModelType.PI0_RTC: "the π₀ model (ROADMAP Queue 1 item 6)",
+    ModelType.PI0_FAST: "FAST (ROADMAP Queue 1 item 8)",
+    ModelType.PI05_RTC: "the RTC sampler (ROADMAP Queue 1 item 5)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class AssetsConfig:
+    """Location of assets (e.g. norm stats) used to set up the data pipeline.
+
+    Assets are replicated inside the checkpoint under ``assets/<asset_id>``.
+    """
+
+    # If not provided, the config assets_dirs is used.
+    assets_dir: str | None = None
+    # If not provided, the repo id is used.
+    asset_id: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    # LeRobot repo id. If None, fake data is created.
+    repo_id: str | None = None
+    # Directory within the assets directory containing the data assets.
+    asset_id: str | None = None
+    # Precomputed normalization stats. If None, normalization is skipped.
+    norm_stats: dict[str, _normalize.NormStats] | None = None
+
+    # dataset-format → common-format repack.
+    repack_transforms: _transforms.Group = dataclasses.field(default_factory=_transforms.Group)
+    # Robot-specific transforms, applied before normalization.
+    data_transforms: _transforms.Group = dataclasses.field(default_factory=_transforms.Group)
+    # Model-specific transforms, applied after normalization.
+    model_transforms: _transforms.Group = dataclasses.field(default_factory=_transforms.Group)
+    # Quantile vs z-score normalization.
+    use_quantile_norm: bool = False
+
+    # Keys used by the data loader to build the action sequence (length = action_horizon).
+    action_sequence_keys: Sequence[str] = ("actions",)
+
+    # If true, the LeRobot dataset task defines the prompt (AWBC conditioning).
+    prompt_from_task: bool = False
+
+    # Optional episode subset.
+    episodes: Sequence[int] | None = None
+
+
+class GroupFactory(Protocol):
+    def __call__(self, model_config) -> _transforms.Group: ...
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelTransformFactory(GroupFactory):
+    """The per-ModelType model transforms (``kai0_tpu/training/config.py:96-149``): π₀.₅ only."""
+
+    default_prompt: str | None = None
+
+    def __call__(self, model_config) -> _transforms.Group:
+        mt = model_config.model_type
+        if mt == ModelType.PI05:
+            return _transforms.Group(
+                inputs=[
+                    _transforms.InjectDefaultPrompt(self.default_prompt),
+                    _transforms.ResizeImages(224, 224),
+                    _transforms.TokenizePrompt(
+                        _tokenizer.PaligemmaTokenizer(model_config.max_token_len),
+                        discrete_state_input=model_config.discrete_state_input,
+                    ),
+                    _transforms.PadStatesAndActions(model_config.action_dim),
+                ],
+            )
+        if mt in _PENDING_MODEL_TYPES:
+            raise NotImplementedError(f"model type {mt.value}: the port has no {_PENDING_MODEL_TYPES[mt]} yet")
+        raise ValueError(f"Unsupported model type {mt}")
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfigFactory(abc.ABC):
+    repo_id: str = "MISSING"
+    assets: AssetsConfig = dataclasses.field(default_factory=AssetsConfig)
+    base_config: DataConfig | None = None
+
+    @abc.abstractmethod
+    def create(self, assets_dirs: pathlib.Path, model_config) -> DataConfig: ...
+
+    def create_base_config(self, assets_dirs: pathlib.Path, model_config) -> DataConfig:
+        repo_id = self.repo_id if self.repo_id != "MISSING" else None
+        asset_id = self.assets.asset_id or repo_id
+        return dataclasses.replace(
+            self.base_config or DataConfig(),
+            repo_id=repo_id,
+            asset_id=asset_id,
+            norm_stats=self._load_norm_stats(pathlib.Path(self.assets.assets_dir or assets_dirs), asset_id),
+            use_quantile_norm=model_config.model_type not in (ModelType.PI0, ModelType.PI0_RTC),
+        )
+
+    def _load_norm_stats(self, assets_dir: pathlib.Path, asset_id: str | None):
+        """Norm stats from a local directory (the port downloads nothing), or None."""
+        if asset_id is None:
+            return None
+        data_assets_dir = assets_dir / asset_id
+        try:
+            norm_stats = _normalize.load(data_assets_dir)
+            logger.info(f"Loaded norm stats from {data_assets_dir}")
+            return norm_stats
+        except FileNotFoundError:
+            logger.info(f"Norm stats not found in {data_assets_dir}, skipping.")
+        return None
+
+
+@dataclasses.dataclass(frozen=True)
+class FakeDataConfig(DataConfigFactory):
+    repo_id: str = "fake"
+
+    def create(self, assets_dirs: pathlib.Path, model_config) -> DataConfig:
+        return dataclasses.replace(self.base_config or DataConfig(), repo_id=self.repo_id)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    # Unique config name used to reference this config from the CLI.
+    name: str = "MISSING"
+    # Experiment name; names the metadata and checkpoint directories.
+    exp_name: str = "MISSING"
+
+    model: Any = dataclasses.field(default_factory=pi0_config.Pi0Config)
+    data: DataConfigFactory = dataclasses.field(default_factory=FakeDataConfig)
+    assets_base_dir: str = "./assets"
+    # Metadata passed to the policy server.
+    policy_metadata: dict[str, Any] | None = None
+
+    # What the train step reads (train_lib.train_step).
+    optimizer: _optimizer.AdamW = dataclasses.field(default_factory=_optimizer.AdamW)
+    lr_schedule: _optimizer.CosineDecaySchedule | _optimizer.RsqrtDecaySchedule = dataclasses.field(
+        default_factory=_optimizer.CosineDecaySchedule
+    )
+    ema_decay: float | None = 0.99
+    param_dtype: str | None = None  # storage dtype of the trainable parameters; None keeps the model's (f32)
+    quantize_frozen: bool = False  # int8 frozen base: quantized once at init, never updated (ops/quant.py)
+
+    @property
+    def assets_dirs(self) -> pathlib.Path:
+        return (pathlib.Path(self.assets_base_dir) / self.name).resolve()
+
+
+def _configs() -> list[TrainConfig]:
+    from kai0_tpu_torch.training import robot_configs
+
+    debug_model = pi0_config.Pi0Config(
+        paligemma_variant="dummy", action_expert_variant="dummy", vision_variant="mu/14", dtype="float32", pi05=True
+    )
+    return [
+        TrainConfig(name="debug_pi05", model=debug_model, data=FakeDataConfig()),
+        TrainConfig(
+            name="debug_lora",
+            model=dataclasses.replace(
+                debug_model, paligemma_variant="dummy_lora", action_expert_variant="dummy_lora", dtype="bfloat16"
+            ),
+            data=FakeDataConfig(),
+            ema_decay=None,
+        ),
+        TrainConfig(name="pi05_base", model=pi0_config.Pi0Config(pi05=True), data=FakeDataConfig()),
+        *robot_configs.configs(),
+    ]
+
+
+_CONFIGS_CACHE: dict[str, TrainConfig] | None = None
+
+
+def registry() -> dict[str, TrainConfig]:
+    global _CONFIGS_CACHE
+    if _CONFIGS_CACHE is None:
+        configs = _configs()
+        if len({c.name for c in configs}) != len(configs):
+            raise ValueError("Config names must be unique.")
+        _CONFIGS_CACHE = {c.name: c for c in configs}
+    return _CONFIGS_CACHE
+
+
+def get_config(config_name: str) -> TrainConfig:
+    """A named config; a name the port does not serve yet raises with its ROADMAP item, an unknown one with
+    did-you-mean suggestions."""
+    from kai0_tpu_torch.training import robot_configs
+
+    configs = registry()
+    if config_name in configs:
+        return configs[config_name]
+    if config_name in robot_configs.PENDING:
+        raise NotImplementedError(
+            f"Config {config_name!r} needs {robot_configs.PENDING[config_name]}, which the port does not have yet; "
+            "the JAX package (kai0_tpu.training.config) serves it"
+        )
+    closest = difflib.get_close_matches(config_name, [*configs, *robot_configs.PENDING], n=5, cutoff=0.0)
+    raise ValueError(f"Config {config_name!r} not found. Did you mean one of: {closest}?")

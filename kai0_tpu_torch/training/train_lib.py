@@ -20,28 +20,14 @@ own step-derived generators (``optimizer.step_generator``).
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from kai0_tpu_torch.ops import quant as _quant
 from kai0_tpu_torch.training import optimizer as _optimizer
+from kai0_tpu_torch.training.config import TrainConfig
 from kai0_tpu_torch.training.utils import TrainState, split_by_mask
 
 _SEED = 42  # kai0_tpu.training.config.TrainConfig.seed
-
-
-@dataclasses.dataclass(frozen=True)
-class TrainConfig:
-    """The fields of ``kai0_tpu.training.config.TrainConfig`` the step reads, with its defaults."""
-
-    optimizer: _optimizer.AdamW = dataclasses.field(default_factory=_optimizer.AdamW)
-    lr_schedule: _optimizer.CosineDecaySchedule | _optimizer.RsqrtDecaySchedule = dataclasses.field(
-        default_factory=_optimizer.CosineDecaySchedule
-    )
-    ema_decay: float | None = 0.99
-    param_dtype: str | None = None  # storage dtype of the trainable parameters; None keeps the model's (f32)
-    quantize_frozen: bool = False  # int8 frozen base: quantized once at init, never updated (ops/quant.py)
 
 
 def trainable_mask(model: torch.nn.Module) -> dict[str, bool]:

@@ -22,6 +22,20 @@ from kai0_tpu_torch.models import pi0 as torch_pi0
 DEBUG = dict(paligemma_variant="dummy", action_expert_variant="dummy", vision_variant="mu/14", dtype="float32", pi05=True)
 
 
+def assert_same(a, b):
+    """Nested dicts of arrays (or strings) with the same keys in the same order, dtypes, shapes and bits."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and list(a) == list(b), (list(a), list(b))
+        for k in a:
+            assert_same(a[k], b[k])
+    elif isinstance(a, str):
+        assert a == b
+    else:
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, (a.dtype, b.dtype, a.shape, b.shape)
+        np.testing.assert_array_equal(a, b)
+
+
 def perturb_zero_leaves(params: dict, seed: int, std: float = 0.05) -> dict:
     rng = np.random.default_rng(seed)
     flat = flatten_dict(params)

@@ -299,3 +299,33 @@ def test_kernel_choice_follows_the_shape(cuda):
             assert len(names) == 1 and kernel in names[0], (kernel, names)
             if kernel != "int8_mm_splitk_kernel<":
                 assert _orientation(names[0].replace("(anonymous namespace)::", "")) == orientation, names
+
+
+@pytest.mark.cuda
+def test_split_k_workspace_is_not_made_inside_a_capture(cuda):
+    """The split kernel's int32 workspace is cached per N and must be zero before each launch. Made inside a CUDA
+    graph capture, its zero fill would run only on replay and eager calls would read it unset: capturing a product
+    with a new N raises and caches nothing. After one eager call the capture replays bit-equal to the plain version,
+    and eager calls after the replays stay bit-equal with the workspace left zero."""
+    m, n, k = 50, 1352, 1024  # an N no other test of the process uses
+    xq, w, sx, sn = _operands(m, n, k, 91, cuda)
+    mm._SPLIT_K_BUFFERS.pop((xq.device, n), None)
+    ref = mm.int8_matmul_plain(xq, w, sx, sn, nt=True)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="inside a CUDA graph capture"):
+        with torch.cuda.graph(graph):
+            mm.int8_matmul(xq, w, sx, sn, nt=True)
+    assert (xq.device, n) not in mm._SPLIT_K_BUFFERS
+    eager = mm.int8_matmul(xq, w, sx, sn, nt=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = mm.int8_matmul(xq, w, sx, sn, nt=True)
+    graph.replay()
+    replayed = captured.clone()
+    graph.replay()
+    after = mm.int8_matmul(xq, w, sx, sn, nt=True)
+    torch.cuda.synchronize()
+    for y in (eager, replayed, captured, after):
+        assert torch.equal(y, ref)
+    ws, counters = mm._SPLIT_K_BUFFERS[(xq.device, n)]
+    assert not ws.any() and not counters.any()

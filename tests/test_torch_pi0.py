@@ -102,11 +102,17 @@ def test_sample_actions_default_noise_uses_generator(setup):
     assert torch.isfinite(a).all()
 
 
-def test_preprocess_rejects_other_resolutions():
-    inputs = to_torch(model_inputs(5))
-    inputs["image"]["base_0_rgb"] = inputs["image"]["base_0_rgb"][:, :200]
-    with pytest.raises(ValueError, match="resizing is not ported"):
-        torch_model.preprocess_observation(torch_model.Observation.from_dict(inputs))
+@pytest.mark.parametrize("shape", [(200, 224), (480, 640), (120, 160)])
+def test_preprocess_resizes_other_resolutions(shape):
+    """A camera that is not 224×224 is resized with padding as JAX's ``preprocess_observation`` does
+    (``jax.image.resize``, antialiased when it downsamples; within 1e-4), the others pass unchanged."""
+    inputs = model_inputs(5)
+    inputs["image"]["base_0_rgb"] = np.random.default_rng(5).integers(0, 256, (1, *shape, 3), dtype=np.uint8)
+    jax_obs = jax_model.preprocess_observation(None, jax_model.Observation.from_dict(inputs))
+    obs = torch_model.preprocess_observation(torch_model.Observation.from_dict(to_torch(inputs)))
+    for key, image in obs.images.items():
+        assert tuple(image.shape) == (1, 224, 224, 3)
+        np.testing.assert_allclose(image.numpy(), np.asarray(jax_obs.images[key]), rtol=0, atol=1e-4)
 
 
 def test_preprocess_default_fills_image_masks():
