@@ -16,7 +16,12 @@ Phases, none of which catches an error (any failure exits non-zero):
    rounds the unnormalised softmax weights to bf16, the plain version the
    normalised ones). Times are CUDA-event medians of 30 runs after warm-up,
    beside ``scaled_dot_product_attention`` on the same inputs (a yardstick the
-   port never calls; its fully masked rows differ).
+   port never calls; its fully masked rows differ). Then the MQA backward
+   kernel where RTC's vjp launches it: B=1, T=50 action rows against the
+   bucket-64 prefix (832 rows) or the full one (968) and the 50 suffix rows
+   (S = 882, 1018), the serving mask, f32 and bf16, against autograd of the
+   plain version within phase 6's tolerances; two bf16 calls give the same
+   bits; timed beside SDPA forward+backward and the bound.
 4. Serve 5 requests through ``Policy.infer`` with the full-width π₀.₅ model
    (Gemma-2B + Gemma-300M, So400m/14, bf16, seeded random weights) at batch 1.
    ``infer`` runs the sampler as a CUDA graph: the first request runs it once
@@ -79,7 +84,8 @@ Phases, none of which catches an error (any failure exits non-zero):
     gate/up, down of Gemma-2B and Gemma-300M) against M = 50 and 968 (int8
     serving), 2 x 968 (phase 12) and the rows phase 13 launches at batch 32:
     1,600 (the action expert), 7,744 (a row chunk of Gemma-2B's fused FFN) and,
-    at the attention sites, which are not chunked, 30,976.
+    at the attention sites, which are not chunked, 30,976; and the action
+    expert's at M = 200 (a denoise step of phase 16's int8 batch of 4).
     K5 (``row_quant``; bf16 and f32 rows, and with a column scale the
     backward's ``dy·s`` from bf16 and f32 ``dy`` at every ``dx`` shape, timed
     beside the cast, multiply and K5 it replaces) and
@@ -143,6 +149,36 @@ Phases, none of which catches an error (any failure exits non-zero):
     kernels by name and count (its device time and kernel count printed).
     Then all of it again with ``quantize=True``, whose replay must run the
     prefill products on ``wgmma`` and the denoise products on split-K.
+15. RTC through the entry points, on phase 14's checkpoint, bf16 then int8:
+    ``create_trained_policy(get_config("pi05_rtc_flatten_fold_inference"),
+    ..., prompt_buckets=[64, 128], warmup=True)`` captures, per bucket, the
+    unguided sampler and the sampler guided by a chunk of 50 rows (the vjp
+    inside the graph). 20 rounds of the port's ``RTCClient``
+    (execute_horizon 25, 25 Hz) on raw Agilex requests; rounds 0 and 1
+    capture the bucket's two graphs with the counts at 0, the counts after the
+    rounds are those captures twice, and a guided request launches 198
+    flash_mha, 180 flash_mha_bwd and 27 flash_mhsa (int8: also the row
+    quantizations, 1,080 of them with the column scale, and the products
+    worked out in ``_rtc_int8_launches``). On the last round's inputs, chunk,
+    delay, horizon and noise the graph's x_0 is bit-equal to the eager
+    ``Pi0RTC.sample_actions``; the guided rows [2, 25) of x_0 lie nearer the
+    previous chunk than the unguided sample's; a profiled replay launches the
+    eager request's attention kernels by name and count (int8: the 1,080
+    ``nn`` products on the ``mma.sync`` tiles, split-K and ``wgmma`` for the
+    rest, and K5's column-scale launches). Then a guided sample at full
+    width, depth 2, f32: card (kernels) against host CPU within 1e-3.
+16. Batched requests: ``infer_batch`` of raw Agilex requests at padded sizes
+    1, 2, 4 and 8 (bucket 64, 20 batches each) in bf16 and 4 in int8, each
+    row within phase 5's bf16 bounds of the same request served alone with
+    the same noise row; wall p50, robots per second and peak GiB; an int8
+    batch of 4 runs every product on ``wgmma``. Then ``BatchingPolicy
+    (max_batch=8)`` under 8 robot threads: dispatches coalesce and each robot
+    gets its own replies.
+17. The port's websocket server on this machine: an import probe of
+    ``websockets`` and ``msgpack`` (printed), RTC's bf16 policy of phase 15
+    served on 127.0.0.1 from a thread, ``GET /healthz``, 20 raw Agilex
+    requests from the port's client beside the same requests in process,
+    bytes per request and reply, and 20 RTC rounds over the wire.
 
 Build: ptxas's register and spill lines of every kernel are printed; the
 tensor-core attention kernels, the ``wgmma`` and split int8 kernels, the
@@ -163,7 +199,12 @@ under keys suffixed ``_m50``: int8 serving's split-contraction kernel);
 9 for the attention and AdamW kernels, phase 13 for the int8 ones;
 ``launches_serving`` and ``launches_serving_entry`` the launches of the graph
 the requests of phases 4 / 11 and 14 replayed, counted at its capture by the
-first request with the counts set to 0 just before. The last line is ``{"ok": true, "device": {...}}``.
+first request with the counts set to 0 just before; ``launches_serving_rtc``
+one guided request of phase 15 (the int8 policy's for the int8 kernels),
+``launches_serving_b8`` one batch of 8 and ``launches_serving_b4`` one int8
+batch of 4 of phase 16, each its graph's capture; K1b's numbers at the RTC
+shapes of phase 3 under keys suffixed ``_rtc`` (S = 882) and ``_rtc_s1018``.
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -193,6 +234,7 @@ INT8_LOSS_TOL, INT8_GRAD_TOL, INT8_GRAD_L2_TOL = 5e-4, 3e-2, 2e-2  # card vs hos
 # Rows of the int8 kernels' operands: int8 serving and the depth-2 gradient check; then what the batch-32 LoRA step
 # launches (the action expert's 32 x 50 rows, a chunk of Gemma-2B's fused FFN, the unchunked attention sites).
 INT8_ROWS, INT8_CHUNK_ROWS, INT8_ATTENTION_ROWS = (50, 968, 2 * 968, TRAIN_BATCH * 50), TRAIN_BATCH * 968 // 4, TRAIN_BATCH * 968
+INT8_BATCH4_ROWS = 4 * 50  # the action expert's products in a denoise step of an int8 batch of 4 (phase 16)
 INT8_REQUEST_LAUNCHES = {"row_quant": 18 * 11 * 5, "int8_matmul": 18 * 11 * 6, "int8_matmul_lora": 0}
 # (K, N) of the quantized products of one layer: Gemma-2B, then the Gemma-300M action expert; LoRA rank.
 INT8_SITES = {
@@ -343,6 +385,45 @@ def check_kernels() -> None:
                 f"kernel {name} {label} {str(dtype)[6:]}: max_abs_err={max_err:.3e} mean_abs_err={mean_err:.3e} "
                 f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={sdpa_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})"
             )
+
+
+def check_rtc_backward() -> dict:
+    """Phase 3, continued: K1b where RTC's vjp launches it (B=1, T=50 action rows against the bucket-64 prefix of 832
+    rows or the full 968, and the 50 suffix rows, with the serving mask), f32 and bf16, against autograd of the plain
+    version; two bf16 calls give the same bits. Returns the bf16 numbers under keys suffixed ``_rtc`` (S=882, the
+    served bucket) and ``_rtc_s1018``."""
+    from kai0_tpu_torch.ops import flash_attention as fa
+    from kai0_tpu_torch.ops.masks import make_attn_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    suffix = make_attn_mask(torch.ones(1, 50, dtype=torch.bool, device="cuda"), torch.arange(50, device="cuda") == 0)
+    record = {}
+    for s, key in ((882, "_rtc"), (1018, "_rtc_s1018")):
+        mask = torch.cat([_prefix_mask()[:, None, : s - 50].expand(1, 50, s - 50), suffix], dim=-1).contiguous()
+        base = [torch.randn(shape, generator=gen, device="cuda") for shape in ((1, 50, 8, 256), (1, s, 1, 256),
+                                                                             (1, s, 1, 256), (1, 50, 8, 256))]
+        base[0] /= 16
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = (x.to(dtype) for x in base)
+            out, lse = fa.flash_mha_fwd(q, k, v, mask)
+            bwd = lambda: fa.flash_mha_bwd(q, k, v, mask, out, lse, dout)  # noqa: E731
+            plain = lambda: fa.flash_mha_bwd_plain(q, k, v, mask, dout)  # noqa: E731
+            grads, ref = bwd(), plain()
+            errs = _grad_errors(grads, ref)
+            _check(max(errs) <= GRAD_TOL[str(dtype)[6:]], f"flash_mha_bwd RTC S={s} {dtype}: relative errors {errs}")
+            if dtype == torch.bfloat16:
+                _check(all(torch.equal(a, b) for a, b in zip(grads, bwd(), strict=True)),
+                       f"flash_mha_bwd RTC S={s}: two bf16 calls differ")
+            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref, strict=True))
+            ms, plain_ms, sdpa_ms = _cuda_ms(bwd), _cuda_ms(plain), _cuda_ms(_sdpa(q, k, v, mask, dout=dout))
+            bound_ms, bound_by = _bound(_mqa_flops(mask, 8, 256, 5), _nbytes(q, k, v, mask, out, dout, lse, *grads), dtype)
+            print(f"kernel flash_mha_bwd RTC vjp B=1 T=50 S={s} {str(dtype)[6:]}: max_err/max|grad| (q,k,v)="
+                  f"{[f'{e:.3e}' for e in errs]} max_abs_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"sdpa_fwd_bwd_ms={sdpa_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+            if dtype == torch.bfloat16:
+                record.update({f"max_abs_err{key}": err, f"ms{key}": ms, f"plain_ms{key}": plain_ms,
+                               f"bound_ms{key}": bound_ms, f"bound_by{key}": bound_by, f"library_ms{key}": sdpa_ms})
+    return {"flash_mha_bwd": record}
 
 
 def _request_inputs(rng: np.random.Generator) -> dict:
@@ -922,6 +1003,7 @@ def check_int8_kernels() -> dict:
             w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)  # as stored: [out, in]
             sn = torch.rand(n, generator=gen, device="cuda") * 1e-3 + 1e-5
             rows = (*INT8_ROWS, INT8_CHUNK_ROWS) + ((INT8_ATTENTION_ROWS,) if site in ("q", "kv", "out") else ())
+            rows += (INT8_BATCH4_ROWS,) if expert == "gemma_300m" else ()
             for m in rows:
                 xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
                 gq = torch.randint(-127, 128, (m, n), generator=gen, device="cuda", dtype=torch.int8)
@@ -1568,8 +1650,407 @@ def _serve_entry_once(cfg, ckpt: str, quantize: bool) -> dict:
     return capture
 
 
+RTC_CONFIG = "pi05_rtc_flatten_fold_inference"
+RTC_ROUNDS = 20
+RTC_CHUNK = (50, 14)  # the graph key of a chunk of the action horizon whose 14 joints and grippers are guided
+BATCH_SIZES = (1, 2, 4, 8)
+BATCH_REPEATS = 20
+
+
+def _agilex_requests(cfg, rng: np.random.Generator, n: int) -> list[dict]:
+    return [{"images": {cam: rng.integers(0, 256, (3, 480, 640), dtype=np.uint8) for cam in AGILEX_CAMERAS},
+             "state": rng.uniform(-1, 1, 14).astype(np.float32), "prompt": cfg.data.default_prompt} for _ in range(n)]
+
+
+def _rtc_eager(model, staged: dict, noise: np.ndarray, rtc: dict) -> tuple[np.ndarray, dict]:
+    """``Pi0RTC.sample_actions`` (eager, no graph) on staged inputs, noise and a request's RTC keys: x_0, launches."""
+    from kai0_tpu_torch.models.model import Observation
+    from kai0_tpu_torch.policies import graphs
+
+    obs = Observation.from_dict(_device_inputs(staged))
+    before = graphs.launch_counts()
+    x0 = model.sample_actions(obs, noise=torch.from_numpy(noise.reshape(1, 50, 32)).cuda(), **rtc)
+    torch.cuda.synchronize()
+    return x0.cpu().numpy(), {k: v - before[k] for k, v in graphs.launch_counts().items() if v - before[k]}
+
+
+def _rtc_graph_x0(policy, staged: dict, noise: np.ndarray, rtc: dict | None) -> np.ndarray:
+    """x_0 of the policy's RTC graph for ``staged`` (guided by ``rtc``'s keys when given)."""
+    from kai0_tpu_torch.models import pi0_rtc
+
+    if rtc is None:
+        graph = policy.graph_for(staged)
+        graph.stage(staged, noise[None])
+    else:
+        config = policy.model_config
+        chunk, provided, scalars = pi0_rtc.rtc_inputs(rtc["prev_action_chunk"], rtc["inference_delay"],
+                                                      rtc["execute_horizon"], config.action_horizon, config.action_dim)
+        graph = policy.graph_for(staged, (chunk.shape[1], provided))
+        graph.stage(staged, noise[None], (chunk, scalars))
+    graph.replay()
+    return graph.fetch()
+
+
+class _Timed:
+    """A policy whose ``infer`` records each request, its reply and its wall ms (between synchronizes)."""
+
+    def __init__(self, policy):
+        self.policy, self.calls = policy, []
+
+    def infer(self, obs: dict) -> dict:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = self.policy.infer(obs)
+        torch.cuda.synchronize()
+        self.calls.append((obs, out, (time.perf_counter() - t) * 1000))
+        return out
+
+
+def _rtc_int8_launches(depth: int = 18, steps: int = 10) -> dict:
+    """Launches of the int8 kernels in one guided RTC request, worked out from the code.
+
+    Forward, the prefill and each step: per layer 5 row quantizations (q, kv, out; the FFN's x and act) and 6
+    products. The vjp of each step, per layer of the action expert: the straight-through ``dx`` of q, kv and out
+    (``_QMM.backward``: a column-scale K5 and an ``nn`` product each), and the fused FFN's backward at 50 rows (one
+    chunk): x quantized again, gate and up re-derived (2 ``nt`` products), and the ``dx`` of down, gate and up (3
+    column-scale K5 and 3 ``nn`` products).
+    """
+    forward = {"row_quant": 5, "int8_matmul": 6}
+    backward = {"row_quant": 3 + 1 + 3, "row_quant_colscale": 3 + 3, "int8_matmul": 3 + 2 + 3}
+    return {k: depth * (1 + steps) * forward.get(k, 0) + depth * steps * backward[k] for k in backward}
+
+
+def _serve_rtc_once(cfg, ckpt: str, quantize: bool) -> tuple[dict, object, list[float]]:
+    """Phase 15 for one policy; returns the launches of one guided request (its graph's capture), the policy and the
+    wall ms of its replayed rounds."""
+    from kai0_tpu_torch.deploy.rtc_client import RTCClient
+    from kai0_tpu_torch.policies import graphs, policy_config
+
+    label = "RTC int8" if quantize else "RTC bf16"
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    policy = policy_config.create_trained_policy(cfg, ckpt, prompt_buckets=ENTRY_BUCKETS, warmup=True, quantize=quantize)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t
+    capture_s = sum(g.capture_seconds for g in policy.graphs.values())
+    guided = [g for g in policy.graphs.values() if g.key[-1][0] == "prev_action_chunk"]
+    print(f"{label}: create_trained_policy({RTC_CONFIG!r}, quantize={quantize}, prompt_buckets={ENTRY_BUCKETS}, "
+          f"warmup=True) in {total_s:.2f}s: {len(policy.graphs)} captures {capture_s:.2f}s (guided: "
+          f"{[round(g.capture_seconds, 2) for g in guided]}); peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    _check(len(policy.graphs) == 2 * (len(ENTRY_BUCKETS) + 1) and len(guided) == len(ENTRY_BUCKETS) + 1,
+           f"{label}: {len(policy.graphs)} graphs after warmup")
+
+    rng = np.random.default_rng(16)
+    observations = _agilex_requests(cfg, rng, RTC_ROUNDS)
+    staged = policy.stage_inputs(observations[0])
+    # The bucket's two graphs from warmup are dropped, so that rounds 0 (no previous chunk yet) and 1 capture them
+    # with every count at 0: the counts read after the rounds are their eager runs and captures.
+    for chunk in (None, RTC_CHUNK):
+        del policy.graphs[graphs.signature(staged, chunk)]
+    _reset_launches()
+    timed = _Timed(policy)
+    client = RTCClient(timed, action_dim=32, chunk_size=50, execute_horizon=25, publish_rate=25.0)
+    clocks = [_clocks()]
+    for obs in observations:
+        executed = client.infer_round(obs)
+        _check(executed.shape == (25, 14) and np.isfinite(executed).all(), f"{label}: executed {executed.shape}")
+    clocks.append(_clocks())
+    served = {k: v for k, v in _read_launches().items() if v}
+    free_graph, guided_graph = policy.graph_for(staged), policy.graph_for(staged, RTC_CHUNK)
+    free, capture = ({k: v for k, v in g.capture_launches.items() if v} for g in (free_graph, guided_graph))
+    _check(served == {k: 2 * free.get(k, 0) + 2 * capture.get(k, 0) for k in served},
+           f"{label}: launches of the rounds {served}, captures {free} (no chunk) and {capture} (guided)")
+    want = {"flash_mha": 198, "flash_mha_bwd": 180, "flash_mhsa": 27, **(_rtc_int8_launches() if quantize else {})}
+    _check(capture == want, f"{label}: launches of a guided request {capture}, want {want}")
+    payloads = [obs for obs, _, _ in timed.calls]
+    _check("prev_action_chunk" not in payloads[0] and all("prev_action_chunk" in p for p in payloads[1:]),
+           f"{label}: the client sent no chunk after round 0")
+    walls = [ms for _, _, ms in timed.calls[2:]]
+    infer_ms = [out["policy_timing"]["infer_ms"] for _, out, _ in timed.calls[2:]]
+    print(f"{label}: {RTC_ROUNDS} rounds of RTCClient(execute_horizon=25, 25 Hz) on raw Agilex requests; rounds 0-1 "
+          f"captured the bucket's graphs (no chunk, guided: {timed.calls[0][2]:.1f} / {timed.calls[1][2]:.1f} ms); "
+          f"rounds 2-{RTC_ROUNDS - 1}: wall_ms {_percentiles(walls)}, infer_ms {_percentiles(infer_ms)}; delay "
+          f"{client.delay.delay_steps} steps at the end; launches since the counts were set to 0: {served}; SM clock, "
+          f"max SM clock, power draw, temperature before / after: {clocks[0]} / {clocks[1]}")
+
+    # The graph against the eager sampler, on the last round's staged inputs, chunk, delay, horizon and noise.
+    last = payloads[-1]
+    rtc = {k: last[k] for k in ("prev_action_chunk", "inference_delay", "execute_horizon")}
+    noise = rng.standard_normal((50, 32)).astype(np.float32)
+    staged_last = policy.stage_inputs(last)
+    x0 = _rtc_graph_x0(policy, staged_last, noise, rtc)
+    eager, eager_launches = _rtc_eager(policy.model, staged_last, noise, rtc)
+    _check(np.array_equal(eager, x0), f"{label}: the graphed x_0 differs from the eager RTC sampler's")
+    _check(eager_launches == capture, f"{label}: eager launches {eager_launches}, capture {capture}")
+    print(f"{label}: guided graph x_0 bit-equal to the eager RTC sampler's on the last round's inputs (delay "
+          f"{rtc['inference_delay']}, horizon {rtc['execute_horizon']}); eager launches = capture = {eager_launches}")
+
+    # Model level: the guided rows [d, exec_h) lie nearer the previous chunk than the unguided sample's.
+    unguided = _rtc_graph_x0(policy, staged, noise, None)
+    prev = unguided[0] + 0.5
+    pulled = _rtc_graph_x0(policy, staged, noise, {"prev_action_chunk": prev, "inference_delay": 2,
+                                                   "execute_horizon": 25})
+    d_free = float(np.abs(unguided[0, 2:25, :14] - prev[2:25, :14]).mean())
+    d_guided = float(np.abs(pulled[0, 2:25, :14] - prev[2:25, :14]).mean())
+    print(f"{label}: rows [2, 25) of x_0, mean |x_0 - prev|: unguided {d_free:.4f}, guided {d_guided:.4f}; "
+          f"rows [25, 50): {np.abs(unguided[0, 25:] - prev[25:]).mean():.4f} / {np.abs(pulled[0, 25:] - prev[25:]).mean():.4f}")
+    _check(np.isfinite(pulled).all() and d_guided < d_free, f"{label}: guidance did not pull toward the chunk")
+
+    # A profiled replay of the guided graph: its kernels by name and count, against the capture's launch counts.
+    # (Not against a profiled eager request: the profiler drops some of the kernels autograd's thread launches.)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof_replay:
+        _rtc_graph_x0(policy, staged_last, noise, rtc)
+    families, replay_ms, attention = _profile_families(prof_replay)
+    by_count = {k.split("::")[-1]: count for k, (_, count) in attention.items()}
+    seen = {"flash_mha": by_count.get("mqa_fwd"), "flash_mha_bwd": by_count.get("mqa_bwd_dq"),
+            "flash_mhsa": by_count.get("mhsa_fwd")}
+    _check(seen == {k: capture[k] for k in seen} and by_count.get("mqa_bwd_dkdv") == capture["flash_mha_bwd"],
+           f"{label}: attention kernels of the replay {by_count}, launches at capture {capture}")
+    print(f"{label}: one replayed guided request: {replay_ms:.2f} ms of device time in "
+          f"{sum(c for _, c in families.values())} kernels; by family: " + "; ".join(
+              f"{fam} {ms:.2f} ms x{count}" for fam, (ms, count) in sorted(families.items(), key=lambda kv: -kv[1][0])))
+    print(f"  attention kernels of the replay (K1f, K1b, K2f as captured): {by_count}")
+    if quantize:
+        counts = _check_int8_orientations(_kernels_named(prof_replay, "int8_mm"), f"{label} replay")
+        want_kernels = {"wgmma nt": 18 * 6, "wgmma nn": 0, "splitk nt": 18 * 10 * (6 + 2), "mma.sync nt": 0,
+                        "mma.sync nn": 18 * 10 * 6}
+        _check(counts == want_kernels, f"{label}: int8 kernels of the replay {counts}, want {want_kernels}")
+        k5 = _kernels_named(prof_replay, "row_quant")
+        colscale = sum(c for name, (_, c) in k5.items() if name.split("<")[1].split(",")[1].strip(" >") == "true")
+        _check(sum(c for _, c in k5.values()) == want["row_quant"] and colscale == want["row_quant_colscale"],
+               f"{label}: K5 kernels of the replay {k5}")
+        print(f"  row_quant kernels of the {label} replay: {colscale} with the column scale of "
+              f"{sum(c for _, c in k5.values())}: " + "; ".join(f"{k} {ms:.2f} ms x{c}" for k, (ms, c) in k5.items()))
+    return capture, policy, walls
+
+
+def rtc_card_vs_host() -> None:
+    """Phase 15, continued: a guided RTC sample at full width, depth cut to 2, f32, on the card (kernels: K1f and K1b
+    on the scalar f32 path) and on the host CPU (plain versions), from the same weights, inputs, chunk and noise."""
+    from kai0_tpu_torch.models.model import Observation
+    from kai0_tpu_torch.models.pi0_rtc import Pi0RTC
+
+    config = _cut_depth_config(2, pi05=True, dtype="float32")
+    model = Pi0RTC(config, device="cuda", param_dtype=torch.float32).init_weights(
+        torch.Generator(device="cuda").manual_seed(18)).eval()
+    rng = np.random.default_rng(18)
+    staged = {k: ({n: x[None] for n, x in v.items()} if isinstance(v, dict) else np.asarray(v)[None])
+              for k, v in _request_inputs(rng).items()}
+    noise = rng.standard_normal((1, 50, 32)).astype(np.float32)
+    rtc = {"prev_action_chunk": rng.uniform(-1, 1, (50, 14)).astype(np.float32), "inference_delay": 3,
+           "execute_horizon": 25}
+    outs, times = [], []
+    for device in ("cuda", "cpu"):
+        model.to(device)
+        obs = Observation.from_dict({k: ({n: torch.from_numpy(np.array(x)).to(device) for n, x in v.items()}
+                                         if isinstance(v, dict) else torch.from_numpy(np.array(v)).to(device))
+                                     for k, v in staged.items()})
+        t = time.perf_counter()
+        outs.append(model.sample_actions(obs, noise=torch.from_numpy(noise).to(device), **rtc).cpu().numpy())
+        times.append(time.perf_counter() - t)
+    err = float(np.abs(outs[0] - outs[1]).max())
+    print(f"RTC full width, depth 2, f32, guided (delay 3, horizon 25): card (kernels) vs host CPU (plain) "
+          f"max_abs_err={err:.3e} (|actions| max {np.abs(outs[1]).max():.3f}; card {times[0]:.2f}s, host "
+          f"{times[1]:.2f}s)")
+    _check(np.isfinite(outs[0]).all() and err <= FULL_WIDTH_TOL, f"RTC card vs host: {err}")
+    del model
+
+
+class _Recorder:
+    """A policy that records the reply each observation got, by the observation's identity."""
+
+    def __init__(self, policy):
+        self.policy, self.replies = policy, {}
+        self.metadata, self.model_config = policy.metadata, policy.model_config
+
+    def _record(self, obs_list, replies):
+        for obs, reply in zip(obs_list, replies, strict=True):
+            self.replies[id(obs)] = reply
+        return replies
+
+    def infer(self, obs):
+        return self._record([obs], [self.policy.infer(obs)])[0]
+
+    def infer_batch(self, obs_list, *, noise=None, pad_to=None):
+        return self._record(obs_list, self.policy.infer_batch(obs_list, noise=noise, pad_to=pad_to))
+
+
+def serve_batched(ckpt: str) -> dict:
+    """Phase 16: ``infer_batch`` at padded sizes 1-8 (bf16) and 4 (int8), then ``BatchingPolicy`` under 8 threads;
+    returns the launches of one batch of 8 (bf16) and of 4 (int8), each its graph's capture."""
+    import threading
+
+    from kai0_tpu_torch.policies import policy_config
+    from kai0_tpu_torch.serving.batching import BatchingPolicy
+    from kai0_tpu_torch.training import config as train_config
+
+    cfg = train_config.get_config(ENTRY_CONFIG)
+    rng = np.random.default_rng(17)
+    requests = _agilex_requests(cfg, rng, max(BATCH_SIZES))
+    noises = rng.standard_normal((max(BATCH_SIZES), 50, 32)).astype(np.float32)
+    launches = {}
+    for quantize, sizes in ((False, BATCH_SIZES), (True, (4,))):
+        label = "batched int8" if quantize else "batched bf16"
+        policy = policy_config.create_trained_policy(cfg, ckpt, prompt_buckets=ENTRY_BUCKETS, quantize=quantize)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        walls_by_size = {}
+        for size in sizes:
+            first = policy.infer_batch(requests[:size], noise=noises[:size], pad_to=size)  # captures
+            staged_key = [g for g in policy.graphs.values() if g.noise_shape[0] == size]
+            _check(len(staged_key) == 1, f"{label}: {len(staged_key)} graphs of batch {size}")
+            capture = {k: v for k, v in staged_key[0].capture_launches.items() if v}
+            walls = []
+            for _ in range(BATCH_REPEATS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = policy.infer_batch(requests[:size], noise=noises[:size])
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1000)
+            for i, (a, b) in enumerate(zip(first, out, strict=True)):
+                _check(np.array_equal(a["actions"], b["actions"]), f"{label} {size}: row {i} changed between replays")
+            worst = (0.0, 0.0)
+            for i in range(size):
+                alone = policy.infer(requests[i], noise=noises[i])["actions"]
+                diff = np.abs(out[i]["actions"] - alone)
+                _check(out[i]["actions"].shape == (50, 14) and np.isfinite(out[i]["actions"]).all()
+                       and diff.max() <= BF16_SAMPLE_TOL["max"] * np.abs(alone).max()
+                       and diff.mean() <= BF16_SAMPLE_TOL["mean"] * np.abs(alone).mean(),
+                       f"{label} {size}: row {i} against the same request alone: max {diff.max()}, mean {diff.mean()}")
+                worst = max(worst, (float(diff.max()), float(diff.mean())))
+            p50 = float(np.percentile(walls, 50))
+            walls_by_size[size] = p50
+            print(f"{label} batch {size}: wall_ms {_percentiles(walls)} over {BATCH_REPEATS} batches, robots/s "
+                  f"{size / p50 * 1000:.2f}; rows against the same request alone: worst max_abs_diff {worst[0]:.4e}, "
+                  f"mean {worst[1]:.4e}; launches at capture {capture}")
+            launches[(quantize, size)] = capture
+        served = {k: v for k, v in _read_launches().items() if v}
+        _check(served == {k: 2 * sum(launches[(quantize, b)].get(k, 0) for b in sizes)
+                          + (0 if 1 in sizes else 2 * launches[(quantize, sizes[0])].get(k, 0)) for k in served},
+               f"{label}: launches since the counts were set to 0 {served}")
+        print(f"{label}: peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB with the graphs of batch "
+              f"{list(sizes)} (and 1) captured; launches since the counts were set to 0 {served}")
+        if quantize:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                policy.infer_batch(requests[:4], noise=noises[:4])
+            counts = _check_int8_orientations(_kernels_named(prof, "int8_mm"), f"{label} batch 4 replay")
+            want = {"wgmma nt": 18 * 6 * 11, "wgmma nn": 0, "splitk nt": 0, "mma.sync nt": 0, "mma.sync nn": 0}
+            _check(counts == want, f"{label}: int8 kernels of a batch of 4 {counts}, want {want}")
+        else:
+            recorder = _Recorder(policy)
+            batcher = BatchingPolicy(recorder, max_batch=8)
+            replies: dict = {}
+            barrier = threading.Barrier(8)
+
+            def robot(i: int) -> None:
+                barrier.wait()
+                for r in range(5):
+                    obs = {**requests[i], "state": requests[i]["state"] + 0.01 * r}
+                    replies[(i, r)] = (obs, batcher.infer(obs))
+
+            threads = [threading.Thread(target=robot, args=(i,)) for i in range(8)]
+            t = time.perf_counter()
+            for thread in threads:
+                thread.start()
+            for thread in threads:
+                thread.join(timeout=120)
+            wall = time.perf_counter() - t
+            batcher.close()
+            _check(not any(th.is_alive() for th in threads) and len(replies) == 40, "BatchingPolicy: a robot hung")
+            _check(all(recorder.replies[id(obs)] is reply for obs, reply in replies.values()),
+                   "BatchingPolicy: a robot got another request's reply")
+            _check(max(batcher.batch_sizes) > 1 and sum(batcher.batch_sizes) == 40,
+                   f"BatchingPolicy: no coalescing {batcher.batch_sizes}")
+            print(f"BatchingPolicy(max_batch=8): 8 robot threads x 5 requests in {wall:.2f}s "
+                  f"({40 / wall:.2f} requests/s); dispatches {batcher.batch_sizes}; each robot got its own replies")
+        del policy
+        torch.cuda.empty_cache()
+    return {"bf16": launches[(False, 8)], "int8": launches[(True, 4)]}
+
+
+def serve_wire(policy, rtc_walls: list[float]) -> None:
+    """Phase 17: the port's server in a thread on 127.0.0.1, the port's client on the same machine: raw Agilex
+    requests and RTC rounds over the wire beside the same in process."""
+    import asyncio
+    import contextlib
+    import http.client
+    import importlib.util
+    import socket
+    import threading
+
+    from kai0_tpu_torch.deploy.rtc_client import RTCClient
+    from kai0_tpu_torch.serving import msgpack_numpy
+    from kai0_tpu_torch.serving.client import WebsocketClientPolicy
+    from kai0_tpu_torch.serving.websocket_policy_server import WebsocketPolicyServer
+    from kai0_tpu_torch.training import config as train_config
+
+    print("import probe: " + ", ".join(f"{name} {'present' if importlib.util.find_spec(name) else 'absent'}"
+                                       for name in ("websockets", "msgpack")))
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    stop = threading.Event()
+
+    async def serve() -> None:  # the server until ``stop`` is set, then cancelled and awaited
+        task = asyncio.create_task(WebsocketPolicyServer(policy, host="127.0.0.1", port=port,
+                                                         metadata=policy.metadata).run())
+        while not (stop.is_set() or task.done()):
+            await asyncio.sleep(0.05)
+        task.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await task
+
+    thread = threading.Thread(target=asyncio.run, args=(serve(),), daemon=True)
+    thread.start()
+    try:
+        deadline = time.monotonic() + 30
+        while True:
+            try:
+                socket.create_connection(("127.0.0.1", port), timeout=1).close()
+                break
+            except OSError:
+                _check(time.monotonic() < deadline and thread.is_alive(), "the server did not start")
+                time.sleep(0.05)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+        conn.request("GET", "/healthz")
+        response = conn.getresponse()
+        _check((response.status, response.read()) == (200, b"OK\n"), "GET /healthz")
+        cfg = train_config.get_config(RTC_CONFIG)
+        requests = _agilex_requests(cfg, np.random.default_rng(19), ENTRY_REQUESTS)
+        local = _Timed(policy)
+        for obs in requests:
+            local.infer(obs)
+        client = WebsocketClientPolicy(host="127.0.0.1", port=port, retry_interval_s=0.2)
+        _check(client.get_server_metadata() == policy.metadata, "server metadata")
+        wire, sizes = [], []
+        for obs in requests:
+            t = time.perf_counter()
+            reply = client.infer(obs)
+            wire.append((time.perf_counter() - t) * 1000)
+            _check(reply["actions"].shape == (50, 14) and np.isfinite(reply["actions"]).all(), "wire actions")
+            sizes.append((len(msgpack_numpy.packb(obs)), len(msgpack_numpy.packb(reply))))
+        timed = _Timed(client)
+        rtc_client = RTCClient(timed, action_dim=32, chunk_size=50, execute_horizon=25, publish_rate=25.0)
+        for obs in requests:
+            _check(rtc_client.infer_round(obs).shape == (25, 14), "wire RTC round")
+        rtc_wire = [ms for _, _, ms in timed.calls[1:]]
+        rtc_sizes = len(msgpack_numpy.packb(rtc_client.make_payload(requests[-1])))
+        client.close()
+        local_ms = [ms for _, _, ms in local.calls]
+        print(f"wire: {ENTRY_REQUESTS} raw Agilex requests through the port's client and server on 127.0.0.1: wall_ms "
+              f"{_percentiles(wire)} against {_percentiles(local_ms)} in process (the same policy and requests); "
+              f"{sizes[0][0]} bytes a request, {sizes[0][1]} a reply; {RTC_ROUNDS} RTC rounds over the wire: rounds "
+              f"1-{RTC_ROUNDS - 1} wall_ms {_percentiles(rtc_wire)} against phase 15's in process {_percentiles(rtc_walls)};"
+              f" {rtc_sizes} bytes a guided request; GET /healthz 200")
+    finally:
+        stop.set()
+        thread.join(timeout=30)
+    _check(not thread.is_alive(), "the server did not stop")
+
+
 def serve_entry() -> dict:
-    """Phase 14: serving through the entry points a robot operator calls, at full width, bf16 then int8."""
+    """Phases 14-17 on one seeded checkpoint: serving through the entry points a robot operator calls, at full width,
+    bf16 then int8 (14); RTC (15); batched requests (16); the websocket server on this machine (17)."""
     import tempfile
 
     from kai0_tpu_torch import interop
@@ -1597,6 +2078,17 @@ def serve_entry() -> dict:
               f"quantile norm stats under assets/{asset_id} in {time.perf_counter() - t:.1f}s")
         for quantize in (False, True):
             launches["int8" if quantize else "bf16"] = _serve_entry_once(cfg, ckpt, quantize)
+        rtc_cfg = train_config.get_config(RTC_CONFIG)
+        launches["rtc_bf16"], rtc_policy, rtc_walls = _serve_rtc_once(rtc_cfg, ckpt, quantize=False)
+        launches["rtc_int8"], int8_policy, _ = _serve_rtc_once(rtc_cfg, ckpt, quantize=True)
+        del int8_policy
+        torch.cuda.empty_cache()
+        rtc_card_vs_host()
+        batched = serve_batched(ckpt)
+        launches["b8"], launches["b4_int8"] = batched["bf16"], batched["int8"]
+        serve_wire(rtc_policy, rtc_walls)
+        del rtc_policy
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -1629,6 +2121,7 @@ def main() -> int:
                    or "spill" not in line, f"the tensor-core kernel {function} spills registers: {line.strip()}")
 
     check_kernels()
+    rtc_record = check_rtc_backward()
     serve_launches, served = serve()
     int8_serve_launches = serve_int8(served)
     del served
@@ -1636,6 +2129,7 @@ def main() -> int:
     record = check_attention_training()
     record.update(check_adam_q8())
     record.update(check_int8_kernels())
+    record["flash_mha_bwd"].update(rtc_record["flash_mha_bwd"])
     check_model_gradients()
     check_lora_int8_gradients()
     launches, _ = train("full")
@@ -1674,6 +2168,19 @@ def main() -> int:
                    f"{name} was not launched on the int8 serving paths")
             entry["launches_serving"] = int8_serve_launches[name]
             entry["launches_serving_entry"] = entry_launches["int8"][name]
+        # launches_serving_rtc: one guided request of phase 15 (its graph's capture; the int8 policy's for the int8
+        # kernels); launches_serving_b8 / _b4: one batch of 8 (bf16) / 4 (int8) of phase 16, its graph's capture.
+        # Each phase set the counts to 0 just before its requests and held the counts after them to its captures.
+        rtc = entry_launches["rtc_int8" if name in int8_kernels else "rtc_bf16"]
+        if name in ("flash_mha", "flash_mha_bwd", "flash_mhsa", "row_quant", "row_quant_colscale", "int8_matmul"):
+            _check(rtc.get(name, 0) > 0, f"{name} was not launched on the RTC serving path")
+            entry["launches_serving_rtc"] = rtc[name]
+        if name in ("flash_mha", "flash_mhsa"):
+            _check(entry_launches["b8"][name] > 0, f"{name} was not launched by a batch of 8")
+            entry["launches_serving_b8"] = entry_launches["b8"][name]
+        if name in ("row_quant", "int8_matmul"):
+            _check(entry_launches["b4_int8"][name] > 0, f"{name} was not launched by an int8 batch of 4")
+            entry["launches_serving_b4"] = entry_launches["b4_int8"][name]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

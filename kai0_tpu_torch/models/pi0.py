@@ -322,7 +322,8 @@ class Pi0(nn.Module):
         return kv_cache, prefix_mask
 
     def compute_velocity(self, obs, kv_cache, prefix_mask, x_t: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
-        """One denoiser evaluation v(x_t, t) against the cached prefix."""
+        """One denoiser evaluation v(x_t, t) against the cached prefix. Never recomputed: RTC's guided steps take its
+        gradient, and recomputing each block would launch its forward kernels twice."""
         batch_size = obs.state.shape[0]
         suffix_tokens, suffix_mask, suffix_ar_mask, adarms_cond = self.embed_suffix(
             obs, x_t, time.expand(batch_size)
@@ -339,6 +340,7 @@ class Pi0(nn.Module):
             [None, adarms_cond],
             kv_cache=kv_cache,
             embed_dtype=self.config.torch_dtype,
+            remat=False,
         )
         return _linear(suffix_out[:, -self.config.action_horizon :].float(), self.action_out_proj)
 
@@ -356,6 +358,12 @@ class Pi0(nn.Module):
             time = float(np.float32(time) + np.float32(dt))
         return torch.tensor(times, dtype=torch.float32, device=self.device)
 
+    def prefix(self, observation: _model.Observation):
+        """Preprocessing and the prefix pass: (the preprocessed observation, per-layer kv_cache, prefix_mask)."""
+        observation = _model.preprocess_observation(observation)
+        kv_cache, prefix_mask = self.compute_prefix_kv_cache(observation)
+        return observation, kv_cache, prefix_mask
+
     @torch.inference_mode()
     def denoise(self, observation: _model.Observation, noise: torch.Tensor, times: torch.Tensor) -> torch.Tensor:
         """From preprocessing to x_0: the prefix pass and its KV cache, then one Euler step per entry of ``times``.
@@ -363,9 +371,8 @@ class Pi0(nn.Module):
         Launches kernels only, reading ``noise`` and ``times`` (``time_grid``) on
         the device: ``policies/graphs.py`` captures it as one CUDA graph.
         """
-        observation = _model.preprocess_observation(observation)
+        observation, kv_cache, prefix_mask = self.prefix(observation)
         dt = -1.0 / times.shape[0]
-        kv_cache, prefix_mask = self.compute_prefix_kv_cache(observation)
         x_t = noise.to(torch.float32)
         for step in range(times.shape[0]):
             x_t = x_t + dt * self.compute_velocity(observation, kv_cache, prefix_mask, x_t, times[step])

@@ -16,8 +16,16 @@ at a time: a lock serializes capture, staging, replay and fetch, so requests
 from several threads (the server's executor) each get their own actions; the
 host transforms run outside it. Tensors on the CPU run
 ``Pi0.sample_actions`` eagerly. ``PolicyRecorder`` writes each request and
-reply to a ``.npy`` file. Batched inference (``infer_batch``, the batching
-server) and the RTC kwargs are not ported.
+reply to a ``.npy`` file.
+
+RTC: ``prev_action_chunk``, ``inference_delay`` and ``execute_horizon`` pass
+from the raw request, in its units, to the RTC sampler, as JAX's ``infer``
+passes them (``kai0_tpu/policies/policy.py:103-106``); a model that is not
+RTC raises ``TypeError`` on them, as JAX's ``sample_actions`` does. On CUDA a
+request with a chunk replays the RTC graph of its chunk's shape, with the
+delay and the horizon staged as data. ``infer_batch`` samples several
+observations in one batch (one graph for each padded batch size); it takes
+no RTC keys (the batching server serves those alone).
 """
 
 from __future__ import annotations
@@ -34,8 +42,9 @@ import torch
 
 from kai0_tpu_torch import transforms as _transforms
 from kai0_tpu_torch.models import model as _model
+from kai0_tpu_torch.models import pi0_rtc as _pi0_rtc
 from kai0_tpu_torch.policies import graphs as _graphs
-from kai0_tpu_torch.transforms import _map_structure
+from kai0_tpu_torch.transforms import _map_structure, flatten_dict, unflatten_dict
 
 logger = logging.getLogger("kai0_tpu_torch")
 
@@ -95,12 +104,13 @@ class Policy:
         """The captured sampler graphs by ``SampleGraph.key`` (empty on the CPU)."""
         return self._graphs
 
-    def graph_for(self, inputs: dict) -> _graphs.SampleGraph:
-        """The graph for batched staged ``inputs``, captured on first use."""
-        key = _graphs.signature(inputs)
+    def graph_for(self, inputs: dict, chunk: tuple[int, int] | None = None) -> _graphs.SampleGraph:
+        """The graph for batched staged ``inputs`` (and an RTC chunk's (length, provided_dim)), captured on first
+        use."""
+        key = _graphs.signature(inputs, chunk)
         with self._graph_lock:
             if key not in self._graphs:
-                graph = _graphs.SampleGraph(self._model, inputs)
+                graph = _graphs.SampleGraph(self._model, inputs, chunk)
                 self._graphs[graph.key] = graph
                 logger.info(f"Captured the sampler for {dict((p, s) for p, s, _ in key)} in {graph.capture_seconds:.1f}s")
             return self._graphs[key]
@@ -113,32 +123,51 @@ class Policy:
             inputs = _trim_prompt_to_bucket(inputs, self._prompt_buckets)
         return _map_structure(lambda x: _model_array(x)[np.newaxis], inputs)
 
+    def _rtc_kwargs(self, obs: dict) -> dict:
+        """The request's RTC keys, as JAX's ``infer`` passes them to ``sample_actions``."""
+        rtc = {key: obs[key] for key in _pi0_rtc.RTC_KEYS if key in obs}
+        if rtc and not isinstance(self._model, _pi0_rtc.Pi0RTC):
+            raise TypeError(f"sample_actions() of {type(self._model).__name__} got unexpected keyword arguments "
+                            f"{sorted(rtc)}: only an RTC model takes them")
+        return rtc
+
+    def _sample(self, inputs: dict, noise: np.ndarray | None, rtc: dict) -> tuple[float, np.ndarray]:
+        """Sample batched staged ``inputs`` (a graph replay on CUDA, eagerly on the CPU); returns the model call's start
+        time (after staging) and the actions [B, H, D]. ``rtc``: the request's RTC keys."""
+        if self._device.type == "cuda":
+            guidance = chunk_key = None  # a guided request stages its chunk and its (delay, horizon)
+            if rtc.get("prev_action_chunk") is not None:
+                chunk, provided_dim, scalars = _pi0_rtc.rtc_inputs(
+                    rtc["prev_action_chunk"], rtc.get("inference_delay"), rtc.get("execute_horizon"),
+                    self._config.action_horizon, self._config.action_dim)
+                guidance, chunk_key = (chunk, scalars), (chunk.shape[1], provided_dim)
+            with self._graph_lock:
+                graph = self.graph_for(inputs, chunk_key)
+                if noise is None:
+                    noise = torch.randn(graph.noise_shape, generator=self._generator, dtype=torch.float32,
+                                        device=self._device)
+                graph.stage(inputs, noise, guidance)
+                torch.cuda.current_stream(self._device).synchronize()  # staging is not model time
+                start_time = time.monotonic()
+                graph.replay()
+                return start_time, graph.fetch()
+        batched = _map_structure(lambda x: torch.from_numpy(np.array(x)).to(self._device), inputs)
+        observation = _model.Observation.from_dict(batched)
+        start_time = time.monotonic()
+        if noise is not None:
+            noise = torch.from_numpy(np.ascontiguousarray(noise)).to(self._device)
+        return start_time, self._model.sample_actions(observation, noise=noise, generator=self._generator, **rtc).numpy()
+
     def infer(self, obs: dict, *, noise: np.ndarray | None = None) -> dict:
         t_start = time.monotonic()
         inputs = self.stage_inputs(obs)
         t_staged = time.monotonic()
+        rtc = self._rtc_kwargs(obs)
         if noise is not None:
             noise = np.asarray(noise, dtype=np.float32)
             if noise.ndim == 2:
                 noise = noise[None]
-        if self._device.type == "cuda":
-            with self._graph_lock:
-                graph = self.graph_for(inputs)
-                if noise is None:
-                    noise = torch.randn(graph.noise_shape, generator=self._generator, dtype=torch.float32,
-                                        device=self._device)
-                graph.stage(inputs, noise)
-                torch.cuda.current_stream(self._device).synchronize()  # staging is not model time
-                start_time = time.monotonic()
-                graph.replay()
-                actions = graph.fetch()
-        else:
-            batched = _map_structure(lambda x: torch.from_numpy(np.array(x)).to(self._device), inputs)
-            observation = _model.Observation.from_dict(batched)
-            start_time = time.monotonic()
-            if noise is not None:
-                noise = torch.from_numpy(noise).to(self._device)
-            actions = self._model.sample_actions(observation, noise=noise, generator=self._generator).numpy()
+        start_time, actions = self._sample(inputs, noise, rtc)
         t_fetched = time.monotonic()
         outputs = {"state": inputs["state"][0], "actions": actions[0]}
 
@@ -151,20 +180,70 @@ class Policy:
         }
         return outputs
 
+    def infer_batch(
+        self, obs_list: Sequence[dict], *, noise: np.ndarray | None = None, pad_to: int | None = None
+    ) -> list[dict]:
+        """Sample several observations in one batch (``kai0_tpu/policies/policy.py:137-208``).
+
+        The batch takes the largest prompt bucket any member needs; ``pad_to``
+        pads it by repeating row 0 (padding rows are dropped), so that a few
+        batch sizes, each one graph, serve any count. ``noise`` [H, D] is
+        broadcast to every row, [n, H, D] padded with its row 0.
+        ``policy_timing`` is ``{infer_ms, batch_size}``. RTC keys raise
+        ``ValueError``: RTC requests are served alone.
+        """
+        if not obs_list:
+            return []
+        for obs in obs_list:
+            for key in _pi0_rtc.RTC_KEYS:
+                if key in obs:
+                    raise ValueError(f"infer_batch does not support RTC kwarg {key!r}; dispatch solo")
+
+        inputs_list = [self._input_transform(_map_structure(lambda x: x, obs)) for obs in obs_list]
+        if self._prompt_buckets and all("tokenized_prompt" in i and "token_ar_mask" not in i for i in inputs_list):
+            # One common bucket for the whole batch: the largest any member needs.
+            used = max(_used_prompt_len(i) for i in inputs_list)
+            inputs_list = [_trim_prompt_to_bucket(i, self._prompt_buckets, used) for i in inputs_list]
+        n = len(inputs_list)
+        m = max(pad_to, n) if pad_to else n
+        flat = [flatten_dict(_map_structure(_model_array, i)) for i in inputs_list]
+        batch = unflatten_dict({path: np.stack([f[path] for f in flat] + [flat[0][path]] * (m - n)) for path in flat[0]})
+        if noise is not None:
+            noise = np.asarray(noise, dtype=np.float32)
+            if noise.ndim == 2:
+                noise = np.broadcast_to(noise, (m, *noise.shape))
+            elif noise.shape[0] != m:
+                noise = np.concatenate([noise, np.broadcast_to(noise[:1], (m - noise.shape[0], *noise.shape[1:]))])
+
+        start_time, actions = self._sample(batch, noise, {})
+        model_time = time.monotonic() - start_time
+
+        results = []
+        for i in range(n):
+            outputs = self._output_transform({"state": batch["state"][i], "actions": actions[i]})
+            outputs["policy_timing"] = {"infer_ms": model_time * 1000, "batch_size": n}
+            results.append(outputs)
+        return results
+
     def reset(self) -> None:
         pass
 
     def warmup(self, example: dict | None = None) -> float:
         """Capture the sampler at batch 1 for every prompt bucket and the full prompt length (from the model config's
-        ``fake_obs``), then serve ``example`` through the whole chain; returns the seconds taken. Captures nothing
-        on the CPU."""
+        ``fake_obs``), an RTC model's also guided by a chunk of ``action_horizon`` rows, then serve ``example``
+        through the whole chain; returns the seconds taken. Captures nothing on the CPU."""
         start = time.monotonic()
         if self._device.type == "cuda":
             fake = self._config.fake_obs(1)
             full = fake["tokenized_prompt"].shape[-1]
+            chunks = [None]
+            if isinstance(self._model, _pi0_rtc.Pi0RTC):
+                dim = self._config.action_dim
+                chunks.append((self._config.action_horizon, min(_pi0_rtc.GUIDED_DIMS, dim)))
             for length in sorted({b for b in self._prompt_buckets or () if b < full} | {full}):
-                self.graph_for({**fake, "tokenized_prompt": fake["tokenized_prompt"][:, :length],
-                                "tokenized_prompt_mask": fake["tokenized_prompt_mask"][:, :length]})
+                for chunk in chunks:
+                    self.graph_for({**fake, "tokenized_prompt": fake["tokenized_prompt"][:, :length],
+                                    "tokenized_prompt_mask": fake["tokenized_prompt_mask"][:, :length]}, chunk)
         if example is not None:
             self.infer(example)
         elapsed = time.monotonic() - start
@@ -178,11 +257,13 @@ def _used_prompt_len(inputs: dict) -> int:
     return int(valid[-1]) + 1 if valid.size else 0
 
 
-def _trim_prompt_to_bucket(inputs: dict, buckets: tuple[int, ...]) -> dict:
-    """Trim trailing prompt padding to the smallest bucket >= the used length (unbatched numpy dict)."""
+def _trim_prompt_to_bucket(inputs: dict, buckets: tuple[int, ...], used: int | None = None) -> dict:
+    """Trim trailing prompt padding to the smallest bucket >= the used length (unbatched numpy dict); ``used``
+    defaults to this prompt's own."""
     mask = np.asarray(inputs["tokenized_prompt_mask"])
     full = mask.shape[-1]
-    bucket = next((b for b in buckets if b >= _used_prompt_len(inputs)), full)
+    used = _used_prompt_len(inputs) if used is None else used
+    bucket = next((b for b in buckets if b >= used), full)
     if bucket < full:
         inputs = dict(inputs)
         inputs["tokenized_prompt"] = np.asarray(inputs["tokenized_prompt"])[..., :bucket]

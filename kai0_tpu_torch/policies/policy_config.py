@@ -10,8 +10,11 @@ and builds the transform chains
     inputs : repack → InjectDefaultPrompt → data-in → Normalize → model-in
     outputs: model-out → Unnormalize → data-out → repack-out
 
-An Orbax ``params/`` checkpoint is read only by the JAX package. Serving
-sharded over several cards and request batching wait for their slices.
+An RTC config (``pi05_rtc_flatten_fold_inference``) gets the RTC model
+(``models/pi0_rtc.Pi0RTC``); ``max_batch`` > 1 wraps the policy in
+``serving/batching.BatchingPolicy``. An Orbax ``params/`` checkpoint is read
+only by the JAX package. Serving sharded over several cards waits for its
+slice.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ import torch
 
 from kai0_tpu_torch import interop as _interop
 from kai0_tpu_torch import transforms as _transforms
+from kai0_tpu_torch.models import model as _model
 from kai0_tpu_torch.models import pi0 as _pi0
+from kai0_tpu_torch.models import pi0_rtc as _pi0_rtc
 from kai0_tpu_torch.ops import quant as _quant
 from kai0_tpu_torch.policies import policy as _policy
 
@@ -34,10 +39,11 @@ logger = logging.getLogger("kai0_tpu_torch")
 
 
 def _load_model(model_config, checkpoint_dir: pathlib.Path, params: Mapping | None, device) -> _pi0.Pi0:
+    model_cls = _pi0_rtc.Pi0RTC if model_config.model_type == _model.ModelType.PI05_RTC else _pi0.Pi0
     if params is not None:
         state = {k: v if isinstance(v, torch.Tensor) else _interop._to_tensor(np.asarray(v)) for k, v in params.items()}
         dtype = next(v.dtype for v in state.values() if v.is_floating_point())
-        model = _pi0.Pi0(model_config, device=device, param_dtype=dtype)
+        model = model_cls(model_config, device=device, param_dtype=dtype)
         model.load_state_dict(state, strict=True)
         return model
     if not _interop.is_torch_checkpoint(checkpoint_dir):
@@ -48,7 +54,7 @@ def _load_model(model_config, checkpoint_dir: pathlib.Path, params: Mapping | No
             )
         raise FileNotFoundError(f"no {_interop.CHECKPOINT_FILE} under {checkpoint_dir} (the port reads local directories)")
     logger.info(f"Loading model from {checkpoint_dir}...")
-    model = _pi0.Pi0(model_config, device=device, param_dtype=torch.bfloat16)
+    model = model_cls(model_config, device=device, param_dtype=torch.bfloat16)
     return _interop.load_torch_checkpoint(model, checkpoint_dir)
 
 
@@ -63,12 +69,14 @@ def create_trained_policy(
     quantize: bool = False,
     prompt_buckets: list[int] | None = None,
     fsdp_devices: int = 1,
+    max_batch: int = 1,
+    batch_wait_ms: float = 0.0,
     params: Mapping[str, Any] | None = None,
     device: torch.device | str = "cuda",
 ) -> _policy.Policy:
     """A ``Policy`` serving ``train_config``'s model from ``checkpoint_dir``, on the card unless ``device`` says
-    otherwise. ``params`` (a state dict in the ``PI0Pytorch`` layout) replaces the checkpoint's weights, in their
-    dtype; noise is drawn from a generator seeded with 0."""
+    otherwise, behind a ``BatchingPolicy`` when ``max_batch`` > 1. ``params`` (a state dict in the ``PI0Pytorch``
+    layout) replaces the checkpoint's weights, in their dtype; noise is drawn from a generator seeded with 0."""
     if fsdp_devices > 1:
         raise NotImplementedError(
             f"fsdp_devices={fsdp_devices}: serving sharded over several cards waits for multi-GPU (ROADMAP Queue 1 "
@@ -113,6 +121,10 @@ def create_trained_policy(
         metadata=train_config.policy_metadata,
         prompt_buckets=prompt_buckets,
     )
+    if max_batch > 1:
+        from kai0_tpu_torch.serving import batching as _batching
+
+        policy = _batching.BatchingPolicy(policy, max_batch, wait_ms=batch_wait_ms)
     if warmup:
         policy.warmup(_warmup_example(train_config))
     return policy

@@ -3,7 +3,7 @@
 Counterpart of ``kai0_tpu/training/config.py``: frozen-dataclass configs
 (``AssetsConfig``, ``DataConfig``, the ``DataConfigFactory`` classes that
 assemble the transform chain and load norm stats at run time), the per-model
-``ModelTransformFactory`` (π₀.₅ only), ``TrainConfig`` and ``get_config`` over
+``ModelTransformFactory`` (π₀.₅ and π₀.₅-RTC), ``TrainConfig`` and ``get_config`` over
 the named configs (``robot_configs.py``) with its did-you-mean message.
 
 ``TrainConfig`` carries the fields serving reads (``name``, ``model``,
@@ -40,7 +40,6 @@ _PENDING_MODEL_TYPES = {
     ModelType.PI0: "the π₀ model (ROADMAP Queue 1 item 6)",
     ModelType.PI0_RTC: "the π₀ model (ROADMAP Queue 1 item 6)",
     ModelType.PI0_FAST: "FAST (ROADMAP Queue 1 item 8)",
-    ModelType.PI05_RTC: "the RTC sampler (ROADMAP Queue 1 item 5)",
 }
 
 
@@ -91,13 +90,13 @@ class GroupFactory(Protocol):
 
 @dataclasses.dataclass(frozen=True)
 class ModelTransformFactory(GroupFactory):
-    """The per-ModelType model transforms (``kai0_tpu/training/config.py:96-149``): π₀.₅ only."""
+    """The per-ModelType model transforms (``kai0_tpu/training/config.py:96-149``): π₀.₅ and π₀.₅-RTC."""
 
     default_prompt: str | None = None
 
     def __call__(self, model_config) -> _transforms.Group:
         mt = model_config.model_type
-        if mt == ModelType.PI05:
+        if mt in (ModelType.PI05, ModelType.PI05_RTC):
             return _transforms.Group(
                 inputs=[
                     _transforms.InjectDefaultPrompt(self.default_prompt),

@@ -3,8 +3,9 @@
 Counterpart of ``kai0_tpu/training/robot_configs.py``: the LeRobot data
 factories of Aloha, Libero, Agilex, ARX and DROID (each builds the repack,
 robot and model transform groups and reads the norm stats), and every named
-π₀.₅ config that is not RTC, among them the six kai0 task configs
-(``pi05_{flatten_fold,tee_shirt_sort,hang_cloth}_{normal,awbc}``). The
+π₀.₅ config, among them the six kai0 task configs
+(``pi05_{flatten_fold,tee_shirt_sort,hang_cloth}_{normal,awbc}``) and the
+RTC serving config ``pi05_rtc_flatten_fold_inference``. The
 training-only fields of the JAX configs (weight loaders, step counts, batch
 sizes, workers) wait for the training entry point (ROADMAP Queue 1 item 4).
 
@@ -20,6 +21,7 @@ import pathlib
 
 from kai0_tpu_torch import transforms as _transforms
 from kai0_tpu_torch.models import pi0 as pi0_config
+from kai0_tpu_torch.models import pi0_rtc as pi0_rtc_config
 from kai0_tpu_torch.policies import agilex_policy, aloha_policy, arx_policy, droid_policy, libero_policy
 from kai0_tpu_torch.training import config as _config
 from kai0_tpu_torch.training import optimizer as _optimizer
@@ -45,7 +47,6 @@ PENDING = {
         ("ADVANTAGE_TORCH_KAI0_FLATTEN_FOLD", "ADVANTAGE_TORCH_PI06_FLATTEN_FOLD"),
         "the advantage estimator (ROADMAP Queue 1 item 7)",
     ),
-    "pi05_rtc_flatten_fold_inference": "the RTC sampler (ROADMAP Queue 1 item 5)",
 }
 
 
@@ -350,4 +351,14 @@ def configs() -> list[_config.TrainConfig]:
         _kai0_finetune("pi05_flatten_fold_awbc", "flatten_fold", awbc=True),
         _kai0_finetune("pi05_tee_shirt_sort_awbc", "tee_shirt_sort", awbc=True),
         _kai0_finetune("pi05_hang_cloth_awbc", "hang_cloth", awbc=True),
+        # RTC inference config (serving only; the data and weights of the flatten-fold fine-tune).
+        TrainConfig(
+            name="pi05_rtc_flatten_fold_inference",
+            model=pi0_rtc_config.Pi0RTCConfig(pi05=True),
+            data=LerobotAgilexDataConfig(
+                repo_id="data/FlattenFold/base",
+                default_prompt="Flatten and fold the cloth.",
+                use_delta_joint_actions=False,
+            ),
+        ),
     ]

@@ -6,13 +6,16 @@ The arguments of ``scripts/serve_policy.py``:
         --policy.dir=<checkpoint dir holding model.safetensors and assets/> --warmup --prompt-buckets=64,128
 
 ``--warmup`` captures the sampler's CUDA graph of every prompt bucket before
-the listener starts; ``--int8`` quantizes the Gemma matmul weights. The
-checkpoint directory is local (nothing is downloaded): both ``--policy.*``
-arguments are required, and ``--env`` is accepted but picks no default
-checkpoint. ``--max_batch``,
-``--batch_wait_ms`` and ``--fsdp_devices`` raise: request batching and
-serving over several cards are not ported yet. ``--device cpu`` serves on the
-host's CPU (slow; for tests).
+the listener starts; ``--int8`` quantizes the Gemma matmul weights;
+``--max_batch`` > 1 coalesces concurrent requests into one batch of up to
+that many (power-of-two sizes, one CUDA graph each; ``--batch_wait_ms`` holds
+a batch's first request that long for others to join). An RTC config
+(``pi05_rtc_flatten_fold_inference``) guides each chunk by the previous one a
+request sends. The checkpoint directory is local (nothing is downloaded):
+both ``--policy.*`` arguments are required, and ``--env`` is accepted but
+picks no default checkpoint. ``--fsdp_devices`` raises: serving over several
+cards is not ported yet. ``--device cpu`` serves on the host's CPU (slow; for
+tests). The server and its codec need no package beyond torch and numpy.
 """
 
 from __future__ import annotations
@@ -58,9 +61,11 @@ def parse_args(argv=None):
         "bucket >= the tokenized length, shrinking the prefill and KV cache (one CUDA graph per bucket)",
     )
     parser.add_argument("--max_batch", "--max-batch", dest="max_batch", type=int, default=1,
-                        help="not ported yet: raises above 1")
+                        help="coalesce up to N concurrent client requests into one device batch (multi-robot "
+                        "serving); batch sizes pad to powers of two")
     parser.add_argument("--batch_wait_ms", "--batch-wait-ms", dest="batch_wait_ms", type=float, default=0.0,
-                        help="not ported yet: raises above 0")
+                        help="hold the first request of a batch up to this long so concurrent clients join it "
+                        "(0 = only coalesce what is already queued)")
     parser.add_argument("--fsdp_devices", "--fsdp-devices", dest="fsdp_devices", type=int, default=1,
                         help="not ported yet: raises above 1")
     parser.add_argument("--device", default="cuda", help="torch device of the model")
@@ -70,8 +75,6 @@ def parse_args(argv=None):
 
 
 def create_policy(args) -> _policy.Policy:
-    if args.max_batch > 1 or args.batch_wait_ms > 0:
-        raise NotImplementedError("--max_batch / --batch_wait_ms: request batching is not ported yet (ROADMAP Queue 1 item 3)")
     if not (args.policy_config and args.policy_dir):
         raise ValueError(f"--env={args.env.value}: the port serves no default checkpoint (the JAX script's are remote); "
                          "name a train config and a local checkpoint directory with --policy.config and --policy.dir")
@@ -85,6 +88,8 @@ def create_policy(args) -> _policy.Policy:
         quantize=args.int8,
         prompt_buckets=[int(b) for b in args.prompt_buckets.split(",")] if args.prompt_buckets else None,
         fsdp_devices=args.fsdp_devices,
+        max_batch=args.max_batch,
+        batch_wait_ms=args.batch_wait_ms,
         device=args.device,
     )
 

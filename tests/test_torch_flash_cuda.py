@@ -164,6 +164,30 @@ def test_flash_mha_bwd_matches_autograd_of_plain(cuda, dtype, b, t, s):
     _assert_grads_close(got, fa.flash_mha_bwd_plain(q, k, v, mask, dout), dtype)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [882, 1018])
+def test_flash_mha_bwd_at_the_rtc_shapes(cuda, dtype, s):
+    """K1b where RTC's vjp launches it: B=1, T=50 action rows against the bucket-64 prefix (832 rows) or the full
+    200-token prompt (968 rows) and the 50 suffix rows, with the serving mask; bf16 gives the same bits twice."""
+    g = torch.Generator(device=cuda).manual_seed(s)
+    prefix = torch.ones(1, s - 50, dtype=torch.bool, device=cuda)
+    prefix[:, 512:768] = False
+    prefix[:, 768 + 50:] = False  # 50 prompt tokens used
+    suffix = make_attn_mask(torch.ones(1, 50, dtype=torch.bool, device=cuda), torch.arange(50, device=cuda) == 0)
+    mask = torch.cat([prefix[:, None, :].expand(1, 50, s - 50), suffix], dim=-1).contiguous()
+    q = (torch.randn(1, 50, 8, 256, generator=g, device=cuda) / 16).to(dtype)
+    k, v = (torch.randn(1, s, 1, 256, generator=g, device=cuda).to(dtype) for _ in range(2))
+    dout = torch.randn(1, 50, 8, 256, generator=g, device=cuda).to(dtype)
+    out, lse = fa.flash_mha_fwd(q, k, v, mask)
+    got = fa.flash_mha_bwd(q, k, v, mask, out, lse, dout)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, fa.flash_mha_bwd_plain(q, k, v, mask, dout), dtype)
+    if dtype == torch.bfloat16:
+        again = fa.flash_mha_bwd(q, k, v, mask, out, lse, dout)
+        assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
+
+
 def _training_mask(batch: int, device) -> torch.Tensor:
     """The joint [prefix, suffix] mask of a training step: padded prompts per sample, one camera masked in one."""
     valid = torch.ones(batch, 1018, dtype=torch.bool, device=device)

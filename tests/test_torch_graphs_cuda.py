@@ -11,7 +11,9 @@ graph replays the kernels the eager ``sample_actions`` launches on the same
 staged inputs and noise, so its actions are bit-equal; a capture counts one
 request's launches and a replay none; the graph of a prompt bucket is
 captured once and then reused; requests from several threads at once each get
-their own actions.
+their own actions. The RTC sampler (``Pi0RTC``) as a graph, its vjp captured
+with it, gives the eager sampler's bits for any delay and horizon, which are
+data; ``infer_batch`` replays one graph for each padded batch size.
 """
 
 from concurrent import futures
@@ -24,6 +26,7 @@ import torch
 
 from kai0_tpu_torch.models import model as _model
 from kai0_tpu_torch.models.pi0 import Pi0, Pi0Config
+from kai0_tpu_torch.models.pi0_rtc import Pi0RTC
 from kai0_tpu_torch.ops import quant
 from kai0_tpu_torch.policies import graphs
 from kai0_tpu_torch.policies.policy import Policy
@@ -158,3 +161,57 @@ def test_concurrent_requests_each_get_their_own_actions(model):
     for i, actions in enumerate(results):
         for a in actions:
             assert np.array_equal(a, want[i]), i
+
+
+def _rtc_model(int8: bool) -> Pi0RTC:
+    model = Pi0RTC(_OneLayer(pi05=True), device="cuda", param_dtype=torch.bfloat16).init_weights(
+        torch.Generator(device="cuda").manual_seed(0)).eval()
+    return quant.quantize_inference_tree(model) if int8 else model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_rtc_graph_is_bit_equal_to_eager(int8):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    model = _rtc_model(int8)
+    policy = Policy(model, model.config, device="cuda")
+    obs, noise = _request(1, 20), np.random.default_rng(2).standard_normal((50, 32)).astype(np.float32)
+    chunk = np.random.default_rng(3).uniform(-1, 1, (50, 14)).astype(np.float32)
+    staged = policy.stage_inputs(obs)
+    batched = {k: ({n: torch.from_numpy(x).cuda() for n, x in v.items()} if isinstance(v, dict)
+                   else torch.from_numpy(v).cuda()) for k, v in staged.items()}
+    for delay, horizon in ((2, 25), (0, 50), (7, 12)):
+        request = {**obs, "prev_action_chunk": chunk, "inference_delay": delay, "execute_horizon": horizon}
+        out = policy.infer(request, noise=noise)["actions"]
+        before = graphs.launch_counts()
+        eager = model.sample_actions(_model.Observation.from_dict(batched), noise=torch.from_numpy(noise[None]).cuda(),
+                                     prev_action_chunk=chunk, inference_delay=delay, execute_horizon=horizon)
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in graphs.launch_counts().items()}
+        assert np.array_equal(out, eager[0].cpu().numpy()), (delay, horizon)
+    (graph,) = policy.graphs.values()  # one graph served every delay and horizon
+    want = {"flash_mha": DEPTH * 11, "flash_mha_bwd": DEPTH * 10, "flash_mhsa": DEPTH}
+    capture = {k: v for k, v in graph.capture_launches.items() if v}
+    assert {k: capture[k] for k in want} == want and launches == graph.capture_launches
+    if int8:
+        assert capture["row_quant_colscale"] == DEPTH * 10 * 6 and capture["int8_matmul"] == DEPTH * (11 * 6 + 10 * 8)
+    unguided = policy.infer(obs, noise=noise)["actions"]  # the scrubbed base step: a second graph
+    assert len(policy.graphs) == 2 and not np.array_equal(unguided, out)
+
+
+@pytest.mark.cuda
+def test_infer_batch_replays_one_graph_per_padded_size(model):
+    policy = Policy(model, model.config, device="cuda")
+    requests = [_request(30 + i, 20) for i in range(3)]
+    noise = np.random.default_rng(9).standard_normal((3, 50, 32)).astype(np.float32)
+    first = policy.infer_batch(requests, noise=noise, pad_to=4)
+    before = graphs.launch_counts()
+    again = policy.infer_batch(requests, noise=noise, pad_to=4)
+    assert graphs.launch_counts() == before and len(policy.graphs) == 1
+    assert list(policy.graphs.values())[0].noise_shape[0] == 4
+    for i, (a, b) in enumerate(zip(first, again, strict=True)):
+        assert np.array_equal(a["actions"], b["actions"]) and a["policy_timing"]["batch_size"] == 3
+        alone = policy.infer(requests[i], noise=noise[i])["actions"]
+        scale = np.abs(alone).max()
+        assert np.abs(alone - a["actions"]).max() <= 0.1 * scale, i  # other kernel shapes: bf16 rounding apart

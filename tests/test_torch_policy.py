@@ -138,7 +138,9 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
         "for name in ('policies.policy', 'policies.policy_config', 'policies.graphs', 'training.train_lib',\n"
         "             'training.robot_configs', 'shared.image_tools', 'shared.normalize', 'serving.websocket_policy_server',\n"
-        "             'models.tokenizer', 'models.sentencepiece_codec', 'transforms', 'policies.agilex_policy'):\n"
+        "             'models.tokenizer', 'models.sentencepiece_codec', 'transforms', 'policies.agilex_policy',\n"
+        "             'models.pi0_rtc', 'serving.batching', 'serving.msgpack_numpy', 'serving.websocket',\n"
+        "             'serving.client', 'deploy.rtc_client', 'deploy.buffers'):\n"
         "    assert 'kai0_tpu_torch.' + name in sys.modules, name\n"
         "print(bad)\n"
     )

@@ -66,7 +66,7 @@ def test_script_serves_a_checkpoint_over_the_websocket(checkpoint):
     threading.Thread(target=server.serve_forever, daemon=True).start()
     time.sleep(0.3)
 
-    websocket_policy_server._wire_codec()  # puts the in-repo client package on sys.path
+    import kai0_tpu.serving  # noqa: F401  (puts the in-repo client package on sys.path)
     from kai0_client.websocket_client_policy import WebsocketClientPolicy
 
     obs = _unbatched(model_inputs(9, prompt_len=200))
@@ -86,12 +86,25 @@ def test_script_serves_a_checkpoint_over_the_websocket(checkpoint):
 
 
 def test_script_refuses_what_is_not_ported(checkpoint):
+    from kai0_tpu_torch.policies.policy import Policy
+    from kai0_tpu_torch.serving.batching import BatchingPolicy
+
     script = _script()
-    for flag in ("--max_batch=4", "--batch_wait_ms=5", "--fsdp_devices=2"):
-        args = script.parse_args(["policy:checkpoint", "--policy.config=debug_pi05", f"--policy.dir={checkpoint}",
+
+    def args(flag):
+        return script.parse_args(["policy:checkpoint", "--policy.config=debug_pi05", f"--policy.dir={checkpoint}",
                                   "--device=cpu", flag])
-        with pytest.raises(NotImplementedError):
-            script.create_policy(args)
+
+    with pytest.raises(NotImplementedError, match="item 10"):
+        script.create_policy(args("--fsdp_devices=2"))
+    batched = script.create_policy(args("--max_batch=4"))
+    try:
+        assert isinstance(batched, BatchingPolicy)
+        obs = _unbatched(model_inputs(4, prompt_len=200))
+        assert batched.infer(obs)["actions"].shape == (50, 32) and batched.batch_sizes == [1]
+    finally:
+        batched.close()
+    assert isinstance(script.create_policy(args("--batch_wait_ms=5")), Policy)
     with pytest.raises(ValueError, match="--policy.config and --policy.dir"):
         script.create_policy(script.parse_args(["--env=droid", "--device=cpu"]))
     with pytest.raises(ValueError, match="local checkpoint directories only"):
