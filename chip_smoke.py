@@ -179,6 +179,30 @@ Phases, none of which catches an error (any failure exits non-zero):
     served on 127.0.0.1 from a thread, ``GET /healthz``, 20 raw Agilex
     requests from the port's client beside the same requests in process,
     bytes per request and reply, and 20 RTC rounds over the wire.
+18. Training through the entry point, at full width: an import probe of
+    ``pyarrow``, ``cv2``, ``av``, ``torchvision`` and ``decord`` (printed: what
+    could read LeRobot parquet and mp4 here); the free disk of the temporary
+    directory, which must hold the bf16 weights and two checkpoints (the run
+    fails otherwise, saying how many bytes it needs); a seeded bf16 π₀.₅
+    written to ``model.safetensors``. ``train_lib.main`` on ``pi05_base``
+    from that file (``CheckpointWeightLoader``), batch 32, 4 steps, a log
+    each step, one save (step 3), 2 loader workers, phase 9's configuration:
+    per step the wall time, samples/s, loss, grad_norm, peak GiB, the loader's
+    wait and the launches of every kernel, which must be phase 9's a step;
+    the save's seconds and bytes. ``checkpoints.restore_state`` of step 3
+    into a fresh state must give main's state bit for bit (parameters, int8
+    codes and scales, count, step). ``scripts/train_torch.py pi05_base ...
+    --resume --num_train_steps=6`` in a subprocess must restore step 3, log
+    steps 4 and 5, append them to ``metrics.jsonl`` and exit 0 (wandb, if
+    it imports, is disabled: the machine has no network). The LoRA + int8
+    fine-tune (``gemma_2b_lora`` + ``gemma_300m_lora``, ``quantize_frozen``)
+    at full width, depth 2, batch 2: 4 steps, then a resume to 6 in process,
+    whose requantized int8 codes must lie within one step of the codes saved
+    (the count that moved is printed). Last, ``create_trained_policy(
+    get_config("pi05_flatten_fold_normal"), "<checkpoints>/5")`` with phase
+    14's synthetic norm stats serves one raw Agilex request: finite (50, 14)
+    actions, and the loaded tensors bit-equal to the checkpoint's. The
+    checkpoints are deleted at the end.
 
 Build: ptxas's register and spill lines of every kernel are printed; the
 tensor-core attention kernels, the ``wgmma`` and split int8 kernels, the
@@ -202,7 +226,9 @@ the requests of phases 4 / 11 and 14 replayed, counted at its capture by the
 first request with the counts set to 0 just before; ``launches_serving_rtc``
 one guided request of phase 15 (the int8 policy's for the int8 kernels),
 ``launches_serving_b8`` one batch of 8 and ``launches_serving_b4`` one int8
-batch of 4 of phase 16, each its graph's capture; K1b's numbers at the RTC
+batch of 4 of phase 16, each its graph's capture; ``launches_train_entry`` the
+4 steps of phase 18's first ``train_lib.main`` run (its LoRA + int8 run's for
+the int8 kernels); K1b's numbers at the RTC
 shapes of phase 3 under keys suffixed ``_rtc`` (S = 882) and ``_rtc_s1018``.
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -2048,6 +2074,18 @@ def serve_wire(policy, rtc_walls: list[float]) -> None:
     _check(not thread.is_alive(), "the server did not stop")
 
 
+def _quantile_stats() -> dict:
+    """Synthetic quantile norm stats of the 32-wide state and actions (phases 14 and 18)."""
+    from kai0_tpu_torch.shared import normalize
+
+    rng = np.random.default_rng(15)
+    stats = {}
+    for key in ("state", "actions"):
+        lo = rng.uniform(-1.5, -0.5, 32)
+        stats[key] = normalize.NormStats(mean=np.zeros(32), std=np.ones(32), q01=lo, q99=lo + rng.uniform(1, 3, 32))
+    return stats
+
+
 def serve_entry() -> dict:
     """Phases 14-17 on one seeded checkpoint: serving through the entry points a robot operator calls, at full width,
     bf16 then int8 (14); RTC (15); batched requests (16); the websocket server on this machine (17)."""
@@ -2068,12 +2106,7 @@ def serve_entry() -> dict:
         path = interop.save_torch_checkpoint(model, ckpt)
         del model
         torch.cuda.empty_cache()
-        rng = np.random.default_rng(15)
-        stats = {}
-        for key in ("state", "actions"):
-            lo = rng.uniform(-1.5, -0.5, 32)
-            stats[key] = normalize.NormStats(mean=np.zeros(32), std=np.ones(32), q01=lo, q99=lo + rng.uniform(1, 3, 32))
-        normalize.save(pathlib.Path(ckpt) / "assets" / asset_id, stats)
+        normalize.save(pathlib.Path(ckpt) / "assets" / asset_id, _quantile_stats())
         print(f"entry: seeded bf16 pi05 written to {path.name} ({path.stat().st_size / 1e9:.3f} GB) with synthetic "
               f"quantile norm stats under assets/{asset_id} in {time.perf_counter() - t:.1f}s")
         for quantize in (False, True):
@@ -2089,6 +2122,252 @@ def serve_entry() -> dict:
         serve_wire(rtc_policy, rtc_walls)
         del rtc_policy
         torch.cuda.empty_cache()
+    return launches
+
+
+TRAIN_ENTRY_STEPS, TRAIN_ENTRY_RESUMED = 4, 6  # the first run's steps, and the step count the resume runs to
+# Launches of one full fine-tune step at batch 32 (phase 9's), which every step of the entry's first run must make.
+TRAIN_STEP_LAUNCHES = {"flash_mha": 36, "flash_mha_bwd": 18, "flash_mhsa": 54, "flash_mhsa_bwd": 27, "adam_q8": 1,
+                       "row_quant": 0, "row_quant_colscale": 0, "int8_matmul": 0, "int8_matmul_lora": 0}
+DECODER_PROBE = ("pyarrow", "cv2", "av", "torchvision", "decord")  # what could read and decode LeRobot data here
+
+
+def _train_entry_config(base, checkpoint_base_dir: str, **overrides):
+    """``base`` with phase 18's loop: batch 32, 4 steps, a log each step, one save (the last step), 2 workers; the
+    configuration of phase 9 (bf16 parameters, int8 moments, no EMA); metrics.jsonl on."""
+    from kai0_tpu_torch.training import optimizer
+
+    fields = dict(exp_name="entry", checkpoint_base_dir=checkpoint_base_dir, batch_size=TRAIN_BATCH,
+                  num_train_steps=TRAIN_ENTRY_STEPS, log_interval=1, save_interval=100, num_workers=2,
+                  param_dtype="bfloat16", optimizer=optimizer.AdamW(state_dtype="int8"), ema_decay=None,
+                  wandb_enabled=True)
+    return dataclasses.replace(base, **{**fields, **overrides})
+
+
+class _StepRecorder:
+    """``on_step`` of ``train_lib.main``: per step the wall time since the last step's end (the step, its log and the
+    wait for the next batch; a save's time left out), loss, grad_norm, peak memory, the loader's wait and the
+    launches of every kernel, held to ``want`` when given."""
+
+    def __init__(self, label: str, batch: int, want: dict | None):
+        self.label, self.batch, self.want, self.rows = label, batch, want, []
+        self.t = None
+        self.before = _read_launches()
+
+    def start(self):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.t = time.perf_counter()
+
+    def __call__(self, step: int, record: dict):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        counts = _read_launches()
+        launches = {k: v - self.before[k] for k, v in counts.items()}
+        self.before = counts
+        row = {"step": step, "wall_ms": (now - self.t - record.get("save_s", 0.0)) * 1000,
+               "loss": float(record["loss"]), "grad_norm": float(record["grad_norm"]),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "loader_wait_ms": record["loader_wait_ms"],
+               "launches": launches, **{k: record[k] for k in ("save_s", "save_bytes") if k in record}}
+        self.rows.append(row)
+        print(f"  {self.label} step {step}: wall_ms={row['wall_ms']:.2f} samples_per_s="
+              f"{self.batch / row['wall_ms'] * 1000:.3f} loss={row['loss']:.6f} grad_norm={row['grad_norm']:.6f} "
+              f"peak_mem_gib={row['peak_gib']:.3f} loader_wait_ms={row['loader_wait_ms']:.3f} launches={launches}"
+              + (f" save_s={row['save_s']:.3f} save_bytes={row['save_bytes']}" if "save_s" in row else ""))
+        _check(np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"]) and row["grad_norm"] > 0,
+               f"{self.label} step {step}: loss {row['loss']}, grad_norm {row['grad_norm']}")
+        if self.want is not None:
+            _check(launches == self.want, f"{self.label} step {step}: launches {launches}, want {self.want}")
+        self.start()
+
+
+def _differing(a: dict, b: dict) -> list[str]:
+    """Names whose tensors differ in dtype, shape or bits (nested dicts flattened)."""
+    out = []
+    for k in a.keys() | b.keys():
+        x, y = a.get(k), b.get(k)
+        if isinstance(x, dict) and isinstance(y, dict):
+            out += [f"{k}/{n}" for n in _differing(x, y)]
+        elif not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                  and torch.equal(x, y)):
+            out.append(k)
+    return out
+
+
+def train_entry() -> dict:
+    """Phase 18: training through the entry point (``train_lib.main`` and ``scripts/train_torch.py``) at full width,
+    its checkpoints, resume and serving; returns the launches of the first run's 4 steps."""
+    import importlib
+    import os
+    import shutil
+    import tempfile
+
+    from kai0_tpu_torch import interop
+    from kai0_tpu_torch.models.pi0 import Pi0
+    from kai0_tpu_torch.policies import policy_config
+    from kai0_tpu_torch.shared import normalize
+    from kai0_tpu_torch.training import checkpoints, train_lib, weight_loaders
+    from kai0_tpu_torch.training import config as train_config
+
+    probe = {}
+    for module in DECODER_PROBE:
+        try:
+            probe[module] = getattr(importlib.import_module(module), "__version__", "present")
+        except ImportError as e:
+            probe[module] = f"absent ({e})"
+    print(f"train entry: decoder probe: {probe}")
+    # The loop's MetricsLogger uses wandb when it imports; this machine may have it and has no network.
+    os.environ["WANDB_MODE"] = "disabled"
+
+    base = train_config.get_config("pi05_base")
+    n = sum(p.numel() for p in Pi0(base.model, device="meta").parameters())
+    # A checkpoint: bf16 parameters (2 bytes each) + int8 mu and nu codes (2) + their f32 block scales.
+    checkpoint_bytes = 4 * n + 8 * sum(-(-p.numel() // 2048) for p in Pi0(base.model, device="meta").parameters())
+    needed = 2 * n + 2 * checkpoint_bytes  # the starting weights, and two steps on disk while the resume saves
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    print(f"train entry: {free / 1e9:.3f} GB free under {tmp}; {needed / 1e9:.3f} GB needed (the bf16 weights "
+          f"{2 * n / 1e9:.3f} GB and two checkpoints of {checkpoint_bytes / 1e9:.3f} GB)")
+    if free < needed:
+        raise RuntimeError(f"phase 18 needs {needed} bytes free under {tmp}, which has {free}")
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="kai0_train_") as root:
+        root = pathlib.Path(root)
+        t = time.perf_counter()
+        model = Pi0(base.model, device="cuda", param_dtype=torch.bfloat16).init_weights(
+            torch.Generator(device="cuda").manual_seed(18))
+        weights = interop.save_torch_checkpoint(model, root / "weights")
+        del model
+        torch.cuda.empty_cache()
+        print(f"train entry: seeded bf16 pi05 written to {weights.name} ({weights.stat().st_size / 1e9:.3f} GB) in "
+              f"{time.perf_counter() - t:.1f}s")
+
+        # First run: train_lib.main in process from the weights, 4 steps, the save at step 3.
+        config = _train_entry_config(base, str(root / "checkpoints"),
+                                     weight_loader=weight_loaders.CheckpointWeightLoader(str(weights)))
+        print(f"train entry: train_lib.main('pi05_base', batch {TRAIN_BATCH}, {TRAIN_ENTRY_STEPS} steps, bf16 "
+              f"parameters, int8 moments, no EMA, 2 loader workers, CheckpointWeightLoader)")
+        _reset_launches()
+        recorder = _StepRecorder("main", TRAIN_BATCH, TRAIN_STEP_LAUNCHES)
+        t = time.perf_counter()
+        recorder.start()
+        model, state = train_lib.main(config, on_step=recorder)
+        total_s = time.perf_counter() - t
+        launches = _read_launches()
+        walls = [r["wall_ms"] for r in recorder.rows[1:]]
+        save = recorder.rows[-1]
+        print(f"  main: {total_s:.1f}s in all; median wall_ms over steps 1-{TRAIN_ENTRY_STEPS - 1} = "
+              f"{statistics.median(walls):.2f} ({TRAIN_BATCH / statistics.median(walls) * 1000:.3f} samples/s); "
+              f"loader wait ms {[round(r['loader_wait_ms'], 3) for r in recorder.rows]}; save of step "
+              f"{save['step']}: {save['save_s']:.3f}s, {save['save_bytes']} bytes; launches over "
+              f"{TRAIN_ENTRY_STEPS} steps {launches}")
+        _check(state.step == TRAIN_ENTRY_STEPS and "save_s" in save, f"main ended at step {state.step}")
+
+        # Restore step 3 into a fresh state: bit for bit the state main returned.
+        manager = checkpoints.CheckpointManager(config.checkpoint_dir, keep_period=config.keep_period)
+        fresh = Pi0(base.model, device="cuda", param_dtype=torch.bfloat16)
+        fresh_state = train_lib.init_train_state(fresh, config, resume=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        restored = checkpoints.restore_state(manager, fresh, fresh_state, step=TRAIN_ENTRY_STEPS - 1)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        step_bytes = sum(f.stat().st_size for f in manager.step_dir(TRAIN_ENTRY_STEPS - 1).rglob("*") if f.is_file())
+        diff = (_differing(restored.params, state.params) + _differing(restored.opt_state["mu"], state.opt_state["mu"])
+                + _differing(restored.opt_state["nu"], state.opt_state["nu"]))
+        print(f"  restore of step {TRAIN_ENTRY_STEPS - 1}: {restore_s:.3f}s, {step_bytes} bytes; {len(state.params)} "
+              f"parameters and {2 * len(state.opt_state['mu'])} int8 moments (codes and scales) against main's state: "
+              f"{len(diff)} differ; count {restored.opt_state['count']}, step {restored.step}")
+        _check(not diff and restored.step == state.step and restored.opt_state["count"] == state.opt_state["count"],
+               f"restored state differs from main's: {diff[:5]}")
+        del model, state, fresh, fresh_state, restored
+        torch.cuda.empty_cache()
+
+        # Resume through the script, as a user would: 2 more steps, no starting weights.
+        argv = [sys.executable, "scripts/train_torch.py", "pi05_base", "--exp_name=entry",
+                f"--checkpoint_base_dir={root / 'checkpoints'}", "--resume", f"--num_train_steps={TRAIN_ENTRY_RESUMED}",
+                f"--batch_size={TRAIN_BATCH}", "--log_interval=1", "--save_interval=100", "--num_workers=2",
+                "--param_dtype=bfloat16", "--optimizer.state_dtype=int8", "--ema_decay=none", "--wandb_enabled=true"]
+        t = time.perf_counter()
+        out = subprocess.run(argv, capture_output=True, text=True, timeout=600,
+                             cwd=pathlib.Path(__file__).resolve().parent)
+        script_s = time.perf_counter() - t
+        logged = [line.split("[I] ")[-1].split("  ")[0] for line in out.stderr.splitlines()
+                  if " Step " in line or "Saved step" in line or "Restored step" in line]
+        print(f"  scripts/train_torch.py --resume --num_train_steps={TRAIN_ENTRY_RESUMED}: rc {out.returncode} in "
+              f"{script_s:.1f}s; " + "; ".join(logged))
+        _check(out.returncode == 0, f"the resume through the script failed:\n{out.stderr[-4000:]}")
+        metrics = [json.loads(line) for line in (config.checkpoint_dir / "metrics.jsonl").read_text().splitlines()]
+        _check([m["step"] for m in metrics] == list(range(TRAIN_ENTRY_RESUMED))
+               and any("Restored step 3" in line for line in logged), f"metrics.jsonl steps {[m['step'] for m in metrics]}")
+        print(f"  metrics.jsonl: {len(metrics)} records, steps {[m['step'] for m in metrics]}, keys {list(metrics[0])}")
+
+        launches_lora = _train_entry_lora(root, weights, base)
+
+        # Serve the resumed checkpoint through the kai0 task config.
+        step_dir = manager.step_dir(TRAIN_ENTRY_RESUMED - 1)
+        serve_cfg = train_config.get_config(ENTRY_CONFIG)
+        asset_id = serve_cfg.data.create(serve_cfg.assets_dirs, serve_cfg.model).asset_id
+        normalize.save(step_dir / "assets" / asset_id, _quantile_stats())
+        t = time.perf_counter()
+        policy = policy_config.create_trained_policy(serve_cfg, step_dir)
+        request = _agilex_requests(serve_cfg, np.random.default_rng(18), 1)[0]
+        actions = policy.infer(request, noise=np.random.default_rng(18).standard_normal((50, 32)).astype(np.float32))[
+            "actions"]
+        serve_s = time.perf_counter() - t
+        trained = interop.read_safetensors(step_dir / interop.CHECKPOINT_FILE)
+        loaded = policy._model.state_dict()
+        diff = _differing({k: v.cpu() for k, v in loaded.items()}, trained)
+        print(f"  create_trained_policy({ENTRY_CONFIG!r}, '<checkpoints>/{step_dir.name}') and one raw Agilex request in "
+              f"{serve_s:.1f}s: actions {actions.shape}, finite {bool(np.isfinite(actions).all())}, max |a| "
+              f"{np.abs(actions).max():.4f}; {len(loaded)} loaded tensors against the checkpoint: {len(diff)} differ")
+        _check(actions.shape == (50, 14) and np.isfinite(actions).all() and not diff,
+               f"serving the trained checkpoint: {actions.shape}, differing {diff[:5]}")
+        del policy, loaded, trained
+        torch.cuda.empty_cache()
+    print(f"train entry: checkpoints deleted; {torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated")
+    return {"full": launches, "lora_int8": launches_lora}
+
+
+def _train_entry_lora(root: pathlib.Path, weights: pathlib.Path, base) -> dict:
+    """Phase 18's LoRA + int8 run and resume in process at full width, depth 2, batch 2: the requantized base
+    within one int8 step of the codes saved; returns the launches of the first run."""
+    from kai0_tpu_torch.ops import quant
+    from kai0_tpu_torch.training import optimizer, train_lib, weight_loaders
+
+    model_config = _cut_depth_config(2, pi05=True, paligemma_variant="gemma_2b_lora",
+                                     action_expert_variant="gemma_300m_lora")
+    config = _train_entry_config(
+        dataclasses.replace(base, name="pi05_lora_int8_depth2", model=model_config), str(root / "checkpoints"),
+        batch_size=2, num_workers=0, param_dtype=None, optimizer=optimizer.AdamW(state_dtype="bfloat16"),
+        quantize_frozen=True, weight_loader=weight_loaders.CheckpointWeightLoader(str(weights)))
+    print(f"train entry: LoRA (rank 16 + rank 32) over an int8 base, depth 2, batch 2, {TRAIN_ENTRY_STEPS} steps, "
+          f"then resume to {TRAIN_ENTRY_RESUMED}, in process")
+    _reset_launches()
+    recorder = _StepRecorder("lora", config.batch_size, None)
+    recorder.start()
+    model, state = train_lib.main(config, on_step=recorder)
+    launches = _read_launches()
+    codes = {name: m.qweight.clone() for name, m in model.named_modules() if quant.is_quant(m)}
+    del model, state
+    recorder = _StepRecorder("lora resume", config.batch_size, None)
+    recorder.start()
+    model, state = train_lib.main(dataclasses.replace(config, resume=True, num_train_steps=TRAIN_ENTRY_RESUMED),
+                                  on_step=recorder)
+    moved, worst, total = 0, 0, 0
+    for name, m in model.named_modules():
+        if quant.is_quant(m):
+            d = (m.qweight.to(torch.int32) - codes[name].to(torch.int32)).abs()
+            moved, worst, total = moved + int((d > 0).sum()), max(worst, int(d.max())), total + d.numel()
+    print(f"  lora: launches over {TRAIN_ENTRY_STEPS} steps {launches}; after the resume, {moved} of {total} int8 codes "
+          f"of {len(codes)} holders differ from the codes saved, by at most {worst}; resumed at step {state.step}")
+    _check(state.step == TRAIN_ENTRY_RESUMED and len(codes) == 2 * 2 * 6 and worst <= 1,
+           f"LoRA + int8 resume: step {state.step}, {len(codes)} holders, codes moved by up to {worst}")
+    _check(launches["int8_matmul"] > 0 and launches["row_quant"] > 0 and launches["int8_matmul_lora"] > 0,
+           f"the LoRA + int8 run launched no int8 kernel: {launches}")
+    del model, state
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2135,6 +2414,7 @@ def main() -> int:
     launches, _ = train("full")
     int8_launches, _ = train("lora_int8")
     entry_launches = serve_entry()
+    train_entry_launches = train_entry()
 
     sources = {
         "flash_mha": ("kai0_tpu_torch/ops/csrc/flash_mqa_fwd.cu", "kai0_tpu/ops/pallas_attention.py:109"),
@@ -2181,6 +2461,11 @@ def main() -> int:
         if name in ("row_quant", "int8_matmul"):
             _check(entry_launches["b4_int8"][name] > 0, f"{name} was not launched by an int8 batch of 4")
             entry["launches_serving_b4"] = entry_launches["b4_int8"][name]
+        # launches_train_entry: the 4 steps of phase 18's first run through train_lib.main (the LoRA + int8 run's,
+        # depth 2, batch 2, for the int8 kernels), counted from 0 set just before main.
+        entry_train = train_entry_launches["lora_int8" if name in int8_kernels else "full"]
+        _check(entry_train[name] > 0, f"{name} was not launched on the training entry path")
+        entry["launches_train_entry"] = entry_train[name]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

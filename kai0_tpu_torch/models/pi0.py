@@ -79,6 +79,22 @@ class Pi0Config:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    def inputs_spec(self, *, batch_size: int = 1) -> tuple[dict, tuple]:
+        """``(shape, numpy dtype)`` of each input of a batch, for ``FakeDataset`` (``kai0_tpu/models/pi0.py:84-96``).
+
+        The observation in the nested-dict form of ``Observation.from_dict``
+        (images float32 in [-1, 1], keyed by camera), and the actions.
+        """
+        f32, boolean = np.dtype(np.float32), np.dtype(bool)
+        observation = {
+            "image": {key: ((batch_size, *_model.IMAGE_RESOLUTION, 3), f32) for key in _model.IMAGE_KEYS},
+            "image_mask": {key: ((batch_size,), boolean) for key in _model.IMAGE_KEYS},
+            "state": ((batch_size, self.action_dim), f32),
+            "tokenized_prompt": ((batch_size, self.max_token_len), np.dtype(np.int32)),
+            "tokenized_prompt_mask": ((batch_size, self.max_token_len), boolean),
+        }
+        return observation, ((batch_size, self.action_horizon, self.action_dim), f32)
+
     def fake_obs(self, batch_size: int = 1) -> dict[str, np.ndarray]:
         """A batch of ones in the model-facing form the transform chain produces (``Observation.from_dict``'s input).
 

@@ -8,9 +8,11 @@ the named configs (``robot_configs.py``) with its did-you-mean message.
 
 ``TrainConfig`` carries the fields serving reads (``name``, ``model``,
 ``data``, ``assets_base_dir``, ``exp_name``, ``policy_metadata``,
-``assets_dirs``) and those the train step reads (``train_lib.train_step``),
-with the port's defaults. A named config whose model or data path the port
-does not have yet raises from ``get_config`` with the ROADMAP item that
+``assets_dirs``), those the train step reads (``train_lib.train_step``) and
+those of the training loop (``train_lib.main``: seed, batch, workers, steps,
+intervals, checkpoint directory and retention, resume, weight loader,
+profiling), with JAX's defaults. A named config whose model or data path the
+port does not have yet raises from ``get_config`` with the ROADMAP item that
 ports it.
 """
 
@@ -30,6 +32,7 @@ from kai0_tpu_torch.models import pi0 as pi0_config
 from kai0_tpu_torch.models import tokenizer as _tokenizer
 from kai0_tpu_torch.shared import normalize as _normalize
 from kai0_tpu_torch.training import optimizer as _optimizer
+from kai0_tpu_torch.training import weight_loaders
 
 logger = logging.getLogger("kai0_tpu_torch")
 
@@ -82,6 +85,12 @@ class DataConfig:
 
     # Optional episode subset.
     episodes: Sequence[int] | None = None
+
+    # Train-time mirror and time-scale views and the RLDS stream of the JAX package: the port's loader raises on
+    # them (data_loader.create_dataset / create_data_loader name the ROADMAP items that port them).
+    augment_mirror: bool = False
+    augment_time_scale: int = 1
+    rlds_data_dir: str | None = None
 
 
 class GroupFactory(Protocol):
@@ -168,6 +177,9 @@ class TrainConfig:
     # Metadata passed to the policy server.
     policy_metadata: dict[str, Any] | None = None
 
+    # Optionally loads (possibly partial) weights after model init.
+    weight_loader: weight_loaders.WeightLoader = dataclasses.field(default_factory=weight_loaders.NoOpWeightLoader)
+
     # What the train step reads (train_lib.train_step).
     optimizer: _optimizer.AdamW = dataclasses.field(default_factory=_optimizer.AdamW)
     lr_schedule: _optimizer.CosineDecaySchedule | _optimizer.RsqrtDecaySchedule = dataclasses.field(
@@ -177,19 +189,58 @@ class TrainConfig:
     param_dtype: str | None = None  # storage dtype of the trainable parameters; None keeps the model's (f32)
     quantize_frozen: bool = False  # int8 frozen base: quantized once at init, never updated (ops/quant.py)
 
+    # What the training loop reads (train_lib.main).
+    checkpoint_base_dir: str = "./checkpoints"
+    seed: int = 42
+    batch_size: int = 32  # on the one card
+    num_workers: int = 2  # spawn processes that read items; 0 reads them in one thread
+    num_train_steps: int = 30_000
+    log_interval: int = 100
+    save_interval: int = 1000
+    # Existing checkpoints with step % keep_period == 0 are retained.
+    keep_period: int | None = 5000
+    overwrite: bool = False
+    resume: bool = False
+    # Metrics logging (metrics.jsonl always; wandb when it imports and this is on).
+    wandb_enabled: bool = True
+    advantage_estimator: bool = False  # the advantage estimator's data: ROADMAP Queue 1 item 7
+    split: str = "all"  # one of ['train', 'val', 'all']
+    drop_last: bool = True
+    skip_norm_stats: bool = False
+    # torch.profiler trace: from `profile_start_step`, `profile_steps` steps to <checkpoint_dir>/profile; 0 disables.
+    profile_start_step: int = 0
+    profile_steps: int = 0
+    # Sharding over several cards waits for ROADMAP Queue 1 item 10; train_lib.main raises on > 1.
+    fsdp_devices: int = 1
+
     @property
     def assets_dirs(self) -> pathlib.Path:
         return (pathlib.Path(self.assets_base_dir) / self.name).resolve()
+
+    @property
+    def checkpoint_dir(self) -> pathlib.Path:
+        if not self.exp_name or self.exp_name == "MISSING":
+            raise ValueError("--exp_name must be set")
+        return (pathlib.Path(self.checkpoint_base_dir) / self.name / self.exp_name).resolve()
+
+    def __post_init__(self) -> None:
+        if self.resume and self.overwrite:
+            raise ValueError("Cannot resume and overwrite at the same time.")
 
 
 def _configs() -> list[TrainConfig]:
     from kai0_tpu_torch.training import robot_configs
 
+    # JAX's debug model is a π₀ config replaced to pi05=True: it keeps π₀'s 48 prompt tokens and continuous state.
     debug_model = pi0_config.Pi0Config(
-        paligemma_variant="dummy", action_expert_variant="dummy", vision_variant="mu/14", dtype="float32", pi05=True
+        paligemma_variant="dummy", action_expert_variant="dummy", vision_variant="mu/14", dtype="float32", pi05=True,
+        max_token_len=48, discrete_state_input=False,
     )
+    # The debug loop of the JAX configs: 4 steps of batch 2, a save at steps 2 and 3, a log every step.
+    debug_loop = dict(batch_size=2, num_train_steps=4, save_interval=2, keep_period=2, log_interval=1, num_workers=0,
+                      wandb_enabled=False)
     return [
-        TrainConfig(name="debug_pi05", model=debug_model, data=FakeDataConfig()),
+        TrainConfig(name="debug_pi05", model=debug_model, data=FakeDataConfig(), **debug_loop),
         TrainConfig(
             name="debug_lora",
             model=dataclasses.replace(
@@ -197,6 +248,7 @@ def _configs() -> list[TrainConfig]:
             ),
             data=FakeDataConfig(),
             ema_decay=None,
+            **debug_loop,
         ),
         TrainConfig(name="pi05_base", model=pi0_config.Pi0Config(pi05=True), data=FakeDataConfig()),
         *robot_configs.configs(),
@@ -231,3 +283,10 @@ def get_config(config_name: str) -> TrainConfig:
         )
     closest = difflib.get_close_matches(config_name, [*configs, *robot_configs.PENDING], n=5, cutoff=0.0)
     raise ValueError(f"Config {config_name!r} not found. Did you mean one of: {closest}?")
+
+
+def cli(argv: list[str] | None = None) -> TrainConfig:
+    """The config named by ``argv`` (``sys.argv[1:]`` by default) with its ``--a.b=value`` overrides."""
+    from kai0_tpu_torch.training import cli as _cli
+
+    return _cli.cli(registry(), argv)

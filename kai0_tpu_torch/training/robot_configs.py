@@ -5,9 +5,10 @@ factories of Aloha, Libero, Agilex, ARX and DROID (each builds the repack,
 robot and model transform groups and reads the norm stats), and every named
 π₀.₅ config, among them the six kai0 task configs
 (``pi05_{flatten_fold,tee_shirt_sort,hang_cloth}_{normal,awbc}``) and the
-RTC serving config ``pi05_rtc_flatten_fold_inference``. The
-training-only fields of the JAX configs (weight loaders, step counts, batch
-sizes, workers) wait for the training entry point (ROADMAP Queue 1 item 4).
+RTC serving config ``pi05_rtc_flatten_fold_inference``, with the training
+fields of the JAX configs (weight loaders, step counts, batch sizes, workers,
+retention). A weight loader reads a local ``model.safetensors``; the JAX
+configs' ``gs://`` checkpoints raise when loaded (the port downloads nothing).
 
 ``PENDING`` names every config of the JAX registry that the port does not
 have yet, with what it needs; ``config.get_config`` raises on those names.
@@ -25,6 +26,7 @@ from kai0_tpu_torch.models import pi0_rtc as pi0_rtc_config
 from kai0_tpu_torch.policies import agilex_policy, aloha_policy, arx_policy, droid_policy, libero_policy
 from kai0_tpu_torch.training import config as _config
 from kai0_tpu_torch.training import optimizer as _optimizer
+from kai0_tpu_torch.training import weight_loaders
 
 _PI0 = "the π₀ model (ROADMAP Queue 1 item 6)"
 _FAST = "FAST (ROADMAP Queue 1 item 8)"
@@ -289,6 +291,13 @@ _KAI0_TASKS = {
 }
 
 
+# The base checkpoint of the kai0 fine-tunes: a local π₀.₅ in the PI0Pytorch layout (JAX: the Orbax ``params``).
+_PI05_BASE_CKPT = "<path/to/pi05_base/checkpoint>/model.safetensors"
+_PI05_GS = "gs://openpi-assets/checkpoints/pi05_base/params"
+# The loop of the kai0 task configs (kai0_tpu/training/robot_configs.py:342-346).
+_KAI0_LOOP = dict(num_train_steps=100_000, keep_period=5000, num_workers=8, batch_size=256)
+
+
 def _kai0_finetune(name: str, task: str, *, awbc: bool = False) -> _config.TrainConfig:
     dataset_dir, prompt, data_cls = _KAI0_TASKS[task]
     variant = "advantage" if awbc else "base"
@@ -301,6 +310,8 @@ def _kai0_finetune(name: str, task: str, *, awbc: bool = False) -> _config.Train
             use_delta_joint_actions=False,
             base_config=_config.DataConfig(prompt_from_task=True) if awbc else None,
         ),
+        weight_loader=weight_loaders.CheckpointWeightLoader(_PI05_BASE_CKPT),
+        **_KAI0_LOOP,
     )
 
 
@@ -311,6 +322,7 @@ def configs() -> list[_config.TrainConfig]:
             name="pi05_aloha",
             model=pi0_config.Pi0Config(pi05=True),
             data=LeRobotAlohaDataConfig(assets=_config.AssetsConfig(asset_id="trossen")),
+            weight_loader=weight_loaders.CheckpointWeightLoader(_PI05_GS),
         ),
         TrainConfig(
             name="pi05_aloha_pen_uncap",
@@ -322,12 +334,15 @@ def configs() -> list[_config.TrainConfig]:
                     assets_dir="gs://openpi-assets/checkpoints/pi05_base/assets", asset_id="trossen"
                 ),
             ),
+            weight_loader=weight_loaders.CheckpointWeightLoader(_PI05_GS),
+            num_train_steps=20_000,
         ),
         TrainConfig(
             name="pi05_droid",
             model=pi0_config.Pi0Config(pi05=True, action_horizon=16),
             data=LeRobotDROIDDataConfig(repo_id="lerobot/droid_100"),
             lr_schedule=_optimizer.CosineDecaySchedule(peak_lr=5e-5, decay_lr=5e-5 / 10),
+            weight_loader=weight_loaders.CheckpointWeightLoader(_PI05_GS),
         ),
         TrainConfig(
             name="pi05_droid_finetune",
@@ -339,11 +354,16 @@ def configs() -> list[_config.TrainConfig]:
                     assets_dir="gs://openpi-assets/checkpoints/pi05_droid/assets", asset_id="droid"
                 ),
             ),
+            weight_loader=weight_loaders.CheckpointWeightLoader("gs://openpi-assets/checkpoints/pi05_droid/params"),
+            num_train_steps=20_000,
+            batch_size=32,
         ),
         TrainConfig(
             name="pi05_libero",
             model=pi0_config.Pi0Config(pi05=True),
             data=LeRobotLiberoDataConfig(repo_id="physical-intelligence/libero"),
+            weight_loader=weight_loaders.CheckpointWeightLoader(_PI05_GS),
+            num_train_steps=30_000,
         ),
         _kai0_finetune("pi05_flatten_fold_normal", "flatten_fold"),
         _kai0_finetune("pi05_tee_shirt_sort_normal", "tee_shirt_sort"),
@@ -360,5 +380,7 @@ def configs() -> list[_config.TrainConfig]:
                 default_prompt="Flatten and fold the cloth.",
                 use_delta_joint_actions=False,
             ),
+            weight_loader=weight_loaders.CheckpointWeightLoader(_PI05_BASE_CKPT),
+            **_KAI0_LOOP,
         ),
     ]
