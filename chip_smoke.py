@@ -203,6 +203,31 @@ Phases, none of which catches an error (any failure exits non-zero):
     14's synthetic norm stats serves one raw Agilex request: finite (50, 14)
     actions, and the loaded tensors bit-equal to the checkpoint's. The
     checkpoints are deleted at the end.
+19. Stage Advantage through the port's entry points, at full width: (a) the
+    port's LeRobot writer writes a synthetic Agilex dataset (4 episodes x 400
+    frames, three 480x640 mp4 cameras, ``stage_progress_gt`` rising from 0 to
+    1, one task); (b) a seeded bf16 estimator (π₀.₅ + value head) is written
+    to ``model.safetensors`` (a π₀.₅ checkpoint has no value head, which the
+    weight loader refuses); (c) ``train_lib.main`` on
+    ``ADVANTAGE_TORCH_KAI0_FLATTEN_FOLD`` pointed at the dataset, batch 32, 4
+    steps, a save at the last, the config's 8 loader workers (or the
+    machine's CPUs), phase 9's memory configuration (bf16 parameters, int8
+    moments, no EMA; the config's f32 AdamW + EMA would need ~66 GB of state):
+    per step the wall, loader wait, peak and launches, which must be phase
+    9's; (d) the estimator's loss, value and gradients at depth 2, f32, card
+    against host within phase 8's 1e-3 x max; (e) step 3's checkpoint in the
+    port's ``SimpleValueEvaluator``: one episode in 2-timestep mode at the KAI0
+    registry batch of 160 and in 1-timestep mode at the PI06 batch of 400 (or
+    the largest power of two whose reckoned peak, ``_eval_peak_gib``, fits 70
+    GiB): frames/s, decode and resize seconds, host ms and device ms a batch,
+    peak, 18 K1f and 27 K2f launches a forward, every value finite and in
+    [-1, 1]; one batch of 160 with the kernels against the plain attention
+    on the card within phase 5's bf16 bounds, and a profiled forward by
+    kernel family; (f) every episode annotated (2-timestep, batch 160),
+    discretized (binary, threshold 70: the top 70% positive) and read back
+    through the port's ``LeRobotDataset`` with ``pi05_flatten_fold_awbc``'s
+    data config: every prompt ends in ", Advantage: positive" or ",
+    Advantage: negative", 70% +- 10% positive.
 
 Build: ptxas's register and spill lines of every kernel are printed; the
 tensor-core attention kernels, the ``wgmma`` and split int8 kernels, the
@@ -228,7 +253,9 @@ one guided request of phase 15 (the int8 policy's for the int8 kernels),
 ``launches_serving_b8`` one batch of 8 and ``launches_serving_b4`` one int8
 batch of 4 of phase 16, each its graph's capture; ``launches_train_entry`` the
 4 steps of phase 18's first ``train_lib.main`` run (its LoRA + int8 run's for
-the int8 kernels); K1b's numbers at the RTC
+the int8 kernels); ``launches_advantage_train`` the 4 estimator steps of phase
+19 (K1f, K1b, K2f, K2b, K3) and ``launches_advantage_eval`` its 2-timestep
+evaluation of one episode (K1f, K2f); K1b's numbers at the RTC
 shapes of phase 3 under keys suffixed ``_rtc`` (S = 882) and ``_rtc_s1018``.
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1128,16 +1155,17 @@ def _on(device, obs, actions, draws):
         return {k: to(v) for k, v in x.items()} if isinstance(x, dict) else x.to(device)
 
     moved = Observation(images=to(obs.images), image_masks=to(obs.image_masks), state=to(obs.state),
-                        tokenized_prompt=to(obs.tokenized_prompt), tokenized_prompt_mask=to(obs.tokenized_prompt_mask))
+                        tokenized_prompt=to(obs.tokenized_prompt), tokenized_prompt_mask=to(obs.tokenized_prompt_mask),
+                        progress=None if obs.progress is None else to(obs.progress))
     return moved, actions.to(device), {k: to(v) for k, v in draws.items()}
 
 
-def _cut_depth_config(depth: int = 2, **kwargs):
-    """``Pi0Config`` at full width with both Gemma experts and SigLIP cut to ``depth`` layers."""
+def _cut_depth_config(depth: int = 2, base=None, **kwargs):
+    """``base`` (``Pi0Config`` by default) at full width with both Gemma experts and SigLIP cut to ``depth`` layers."""
     from kai0_tpu_torch.models.pi0 import Pi0Config
 
     @dataclasses.dataclass(frozen=True)
-    class CutDepth(Pi0Config):
+    class CutDepth(base or Pi0Config):
         @property
         def paligemma_config(self):
             return dataclasses.replace(super().paligemma_config, depth=depth)
@@ -2371,6 +2399,307 @@ def _train_entry_lora(root: pathlib.Path, weights: pathlib.Path, base) -> dict:
     return launches
 
 
+ADVANTAGE_CONFIG, PI06_CONFIG = "ADVANTAGE_TORCH_KAI0_FLATTEN_FOLD", "ADVANTAGE_TORCH_PI06_FLATTEN_FOLD"
+ADVANTAGE_EPISODES, ADVANTAGE_FRAMES, ADVANTAGE_HW = 4, 400, (480, 640)  # phase 19's synthetic Agilex dataset
+ADVANTAGE_INTERVAL, ADVANTAGE_THRESHOLD = 50, 70.0  # the evaluator's relative interval; discretize's top share, %
+EVAL_PEAK_LIMIT_GIB = 70.0  # the evaluator's batch is cut to the largest power of two whose reckoned peak fits
+
+
+def _write_advantage_dataset(root: pathlib.Path, prompt: str) -> pathlib.Path:
+    """Phase 19's dataset, written by the port's writer: ``ADVANTAGE_EPISODES`` x ``ADVANTAGE_FRAMES`` frames, three
+    480x640 mp4 cameras (a blocky random image per camera and episode, shifted 2 pixels a frame), a 14-dim state
+    and action (random walks), ``stage_progress_gt`` rising from 0 to 1, one task."""
+    from kai0_tpu_torch.data import lerobot_writer
+
+    h, w = ADVANTAGE_HW
+    feats = lerobot_writer.feature_spec(state_dim=14, action_dim=14, cameras={c: (h, w) for c in AGILEX_CAMERAS},
+                                        fps=30)
+    feats["stage_progress_gt"] = {"dtype": "float32", "shape": [1]}
+    writer = lerobot_writer.LeRobotDatasetWriter(root, feats, fps=30, robot_type="agilex")
+    rng = np.random.default_rng(19)
+    n = ADVANTAGE_FRAMES
+    for _ in range(ADVANTAGE_EPISODES):
+        videos = {}
+        for cam in AGILEX_CAMERAS:
+            tile = np.repeat(np.repeat(rng.integers(0, 256, (h // 16, w // 16, 3), dtype=np.uint8), 16, 0), 16, 1)
+            videos[f"observation.images.{cam}"] = np.stack([np.roll(tile, 2 * t, axis=1) for t in range(n)])
+        walk = np.clip(np.cumsum(rng.normal(0, 0.02, (n, 2, 14)), axis=0), -1, 1).astype(np.float32)
+        writer.add_episode({"observation.state": walk[:, 0], "action": walk[:, 1],
+                            "stage_progress_gt": np.linspace(0, 1, n, dtype=np.float32)}, task=prompt, videos=videos)
+    writer.finalize()
+    return root
+
+
+def _eval_peak_gib(batch: int, n_params: int) -> float:
+    """Reckoned peak of one estimator forward at ``batch`` (bf16): the weights, Gemma-2B's FFN over the 968 prefix
+    tokens (gate, up, gelu(gate) and their product alive together, [B·968, 16384] bf16 each), three f32 images of the
+    RoPE'd queries of all 1018 tokens ([B, 1018, 8, 256]), and the six cameras as f32 [B, 224, 224, 3]."""
+    ffn = 4 * batch * 968 * 16384 * 2
+    rope = 3 * batch * 1018 * 8 * 256 * 4
+    images = 6 * batch * 224 * 224 * 3 * 4
+    return (2 * n_params + ffn + rope + images) / 2**30
+
+
+def _eval_batch(want: int, n_params: int) -> int:
+    """``want``, or the largest power of two under it whose reckoned peak fits ``EVAL_PEAK_LIMIT_GIB``."""
+    batch = want
+    while _eval_peak_gib(batch, n_params) > EVAL_PEAK_LIMIT_GIB:
+        batch = 2 ** (batch.bit_length() - 1) if batch & (batch - 1) else batch // 2
+    return batch
+
+
+class _PlainAttention:
+    """Within the block, the models' attention runs the plain PyTorch versions on the card (for comparison only)."""
+
+    def __enter__(self):
+        from kai0_tpu_torch.ops import attention
+        from kai0_tpu_torch.ops import flash_attention as fa
+
+        self.saved = attention.mha, attention.mhsa_dense_hm
+        attention.mha, attention.mhsa_dense_hm = fa.flash_mha_plain, fa.flash_mhsa_plain
+
+    def __exit__(self, *exc):
+        from kai0_tpu_torch.ops import attention
+
+        attention.mha, attention.mhsa_dense_hm = self.saved
+
+
+def check_advantage_gradients() -> None:
+    """Phase 19 (d): the estimator's loss, value and gradients at full width, depth 2, f32, batch 2: card (kernels)
+    against the host CPU (plain versions), within phase 8's 1e-3 x max."""
+    from kai0_tpu_torch.models.advantage import AdvantageEstimator, AdvantageEstimatorConfig
+
+    config = _cut_depth_config(2, base=AdvantageEstimatorConfig, pi05=True, dtype="float32", discrete_state_input=False,
+                               loss_action_weight=0.0, loss_value_weight=1.0)
+    model = AdvantageEstimator(config, device="cuda", param_dtype=torch.float32).init_weights(
+        torch.Generator(device="cuda").manual_seed(19))
+    obs, actions, draws = _gradient_inputs(19)
+    obs = dataclasses.replace(obs, progress=torch.tensor([0.35, -0.6], device="cuda"))
+    draws = {"noise": draws["noise"], "time": draws["time"]}
+
+    def run(device):
+        o, a, d = _on(device, obs, actions, draws)
+        model.zero_grad(set_to_none=True)
+        loss, aux = model.compute_loss_and_aux(o, a, **d)
+        loss.mean().backward()
+        values = model.sample_values(o, **d)
+        grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
+                 for k, p in model.named_parameters()}
+        return loss.detach().cpu(), {k: float(v) for k, v in aux.items()}, values.cpu(), grads
+
+    _reset_launches()
+    card = run("cuda")
+    launches = _read_launches()
+    _check(all(launches[k] > 0 for k in ("flash_mha", "flash_mha_bwd", "flash_mhsa", "flash_mhsa_bwd")),
+           f"the estimator's gradients did not go through the kernels: {launches}")
+    model.to("cpu")
+    torch.cuda.empty_cache()
+    host = run("cpu")
+    for name, a, b in (("loss", card[0], host[0]), ("value", card[2], host[2])):
+        err = (a - b).abs().max().item()
+        _check(err <= MODEL_GRAD_TOL * max(b.abs().max().item(), 1e-6), f"estimator {name}: card vs host {err}")
+    worst, worst_key = 0.0, None
+    floor = 1e-6 * max(g.abs().max().item() for g in host[3].values())
+    for k, g in host[3].items():
+        scale = max(g.abs().max().item(), floor)
+        err = (card[3][k] - g).abs().max().item()
+        _check(err <= MODEL_GRAD_TOL * scale, f"{k}: card vs host gradient error {err} > {MODEL_GRAD_TOL} x {scale}")
+        if err / scale > worst:
+            worst, worst_key = err / scale, k
+    _check(all(card[3][f"value_head.{i}.weight"].abs().max() > 0 for i in (0, 2, 4)), "zero value head gradient")
+    print(f"advantage: estimator at full width, depth 2, f32, batch 2: loss card {card[0].mean().item():.6f} host "
+          f"{host[0].mean().item():.6f}, aux card {card[1]} host {host[1]}; values card {card[2].flatten().tolist()} "
+          f"host {host[2].flatten().tolist()}; worst gradient error {worst:.3e} x max |grad| ({worst_key}); "
+          f"{len(host[3])} tensors; launches {launches}")
+    del model
+
+
+def _evaluate(evaluator, paths, prompt: str, mode: str, batch: int, frames: int) -> dict:
+    """One episode through the evaluator in ``mode`` at ``batch``, the counts set to 0 just before: its records and
+    launches, checked (finite values in [-1, 1]; one K1f launch a Gemma layer and one K2f a SigLIP layer a forward)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t = time.perf_counter()
+    if mode == "2timesteps":
+        results = evaluator.evaluate_video_2timesteps_advantages(paths, prompt, batch_size=batch,
+                                                                 relative_interval=ADVANTAGE_INTERVAL)
+    else:
+        results = evaluator.evaluate_video_1timestep_advantage(paths, prompt, batch_size=batch)
+    wall = time.perf_counter() - t
+    launches = _read_launches()
+    timing = evaluator.timing
+    forwards = len(timing["device_ms"])
+    values = np.asarray([[v for k, v in r.items() if not k.endswith("idx")] for r in results], dtype=np.float64)
+    print(f"  {mode} at batch {batch}: {frames} frames in {wall:.3f}s = {frames / wall:.3f} frames/s; decode and "
+          f"resize {timing['decode_s']:.3f}s; {forwards} forwards, device ms {[round(x, 2) for x in timing['device_ms']]}; "
+          f"host assembly ms {[round(x, 2) for x in timing['prep_ms']]}; staging ms "
+          f"{[round(x, 2) for x in timing['stage_ms']]}; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"values in [{values.min():.4f}, {values.max():.4f}]; launches {launches}")
+    _check(len(results) == frames and np.isfinite(values).all() and np.abs(values).max() <= 1.0,
+           f"{mode}: {len(results)} results, values in [{values.min()}, {values.max()}]")
+    _check(launches["flash_mha"] == 18 * forwards and launches["flash_mhsa"] == 27 * forwards
+           and launches["flash_mha_bwd"] == launches["flash_mhsa_bwd"] == 0, f"{mode}: launches {launches}")
+    return launches
+
+
+def stage_advantage() -> dict:
+    """Phase 19: Stage Advantage through the port's entry points at full width; returns the launches of the
+    estimator's 4 training steps and of the 2-timestep evaluation of one episode."""
+    import os
+    import shutil
+    import tempfile
+
+    from kai0_tpu_torch import interop
+    from kai0_tpu_torch.advantage import annotate, discretize
+    from kai0_tpu_torch.advantage.evaluator import SimpleValueEvaluator
+    from kai0_tpu_torch.models.advantage import AdvantageEstimator
+    from kai0_tpu_torch.shared import normalize
+    from kai0_tpu_torch.training import config as train_config
+    from kai0_tpu_torch.training import data_loader, optimizer, train_lib, weight_loaders
+    from scripts.annotate_advantage_torch import MODELS_CONFIG_MAP
+
+    os.environ["WANDB_MODE"] = "disabled"
+    registry = MODELS_CONFIG_MAP["Flatten-Fold"]
+    base = train_config.get_config(ADVANTAGE_CONFIG)
+    prompt = base.data.default_prompt
+    n = sum(p.numel() for p in AdvantageEstimator(base.model, device="meta").parameters())
+    checkpoint_bytes = 4 * n + 8 * sum(-(-p.numel() // 2048) for p in AdvantageEstimator(base.model, device="meta").parameters())
+    needed = 2 * n + checkpoint_bytes + 2 * 10**9  # the starting weights, one checkpoint, the dataset and its copies
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    print(f"advantage: {free / 1e9:.3f} GB free under {tmp}; {needed / 1e9:.3f} GB needed")
+    if free < needed:
+        raise RuntimeError(f"phase 19 needs {needed} bytes free under {tmp}, which has {free}")
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="kai0_advantage_") as root:
+        root = pathlib.Path(root)
+        # (a) the dataset
+        t = time.perf_counter()
+        dataset = _write_advantage_dataset(root / "FlattenFold", prompt)
+        size = sum(f.stat().st_size for f in dataset.rglob("*") if f.is_file())
+        print(f"advantage: dataset of {ADVANTAGE_EPISODES} x {ADVANTAGE_FRAMES} frames, cameras {AGILEX_CAMERAS} at "
+              f"{ADVANTAGE_HW} (mp4v), written by the port's writer in {time.perf_counter() - t:.1f}s, {size} bytes")
+        # (b) a seeded estimator checkpoint with its value head (a pi05 checkpoint has none: the loader refuses it)
+        t = time.perf_counter()
+        model = AdvantageEstimator(base.model, device="cuda", param_dtype=torch.bfloat16).init_weights(
+            torch.Generator(device="cuda").manual_seed(19))
+        weights = interop.save_torch_checkpoint(model, root / "weights")
+        del model
+        torch.cuda.empty_cache()
+        print(f"advantage: seeded bf16 estimator ({n / 1e9:.3f}B parameters, value head included) written to "
+              f"{weights.name} ({weights.stat().st_size / 1e9:.3f} GB) in {time.perf_counter() - t:.1f}s")
+
+        # (c) train through train_lib.main: phase 9's memory configuration, the config's loader workers
+        workers = min(base.num_workers, os.cpu_count() or 1)
+        config = dataclasses.replace(
+            _train_entry_config(base, str(root / "checkpoints"), num_workers=workers, wandb_enabled=False,
+                                weight_loader=weight_loaders.CheckpointWeightLoader(str(weights))),
+            exp_name="advantage", assets_base_dir=str(root / "assets"),
+            data=dataclasses.replace(base.data, repo_id=str(dataset),
+                                     assets=train_config.AssetsConfig(asset_id="synthetic")))
+        normalize.save(config.assets_dirs / "synthetic", _quantile_stats())
+        print(f"advantage: train_lib.main({ADVANTAGE_CONFIG!r}, batch {TRAIN_BATCH}, {TRAIN_ENTRY_STEPS} steps, bf16 "
+              f"parameters, int8 moments, no EMA (the config's f32 AdamW + EMA overridden), {workers} loader workers "
+              f"(config {base.num_workers}, {os.cpu_count()} CPUs), split {config.split!r}, 6 mp4 frames a sample)")
+        _reset_launches()
+        recorder = _StepRecorder("advantage", TRAIN_BATCH, TRAIN_STEP_LAUNCHES)
+        t = time.perf_counter()
+        recorder.start()
+        model, state = train_lib.main(config, on_step=recorder)
+        total_s = time.perf_counter() - t
+        launches["train"] = _read_launches()
+        walls = [r["wall_ms"] for r in recorder.rows[1:]]
+        save = recorder.rows[-1]
+        print(f"  advantage main: {total_s:.1f}s in all; median wall_ms over steps 1-{TRAIN_ENTRY_STEPS - 1} = "
+              f"{statistics.median(walls):.2f} ({TRAIN_BATCH / statistics.median(walls) * 1000:.3f} samples/s); "
+              f"loader wait ms {[round(r['loader_wait_ms'], 3) for r in recorder.rows]}; peak GiB "
+              f"{[round(r['peak_gib'], 3) for r in recorder.rows]}; save of step {save['step']}: {save['save_s']:.3f}s, "
+              f"{save['save_bytes']} bytes; launches over {TRAIN_ENTRY_STEPS} steps {launches['train']}")
+        step_dir = config.checkpoint_dir / str(TRAIN_ENTRY_STEPS - 1)
+        saved = interop.read_safetensors(step_dir / interop.CHECKPOINT_FILE)
+        _check(state.step == TRAIN_ENTRY_STEPS and {f"value_head.{i}.weight" for i in (0, 2, 4)} <= set(saved),
+               f"the estimator's checkpoint: step {state.step}, value head keys {sorted(k for k in saved if 'value' in k)}")
+        del model, state, saved
+        torch.cuda.empty_cache()
+
+        # (d) card vs host
+        check_advantage_gradients()
+        torch.cuda.empty_cache()
+
+        # (e) evaluate one episode with step 3's checkpoint
+        t = time.perf_counter()
+        evaluator = SimpleValueEvaluator(ADVANTAGE_CONFIG, step_dir, batch_size=registry["KAI0"]["batch_size"])
+        print(f"advantage: SimpleValueEvaluator({ADVANTAGE_CONFIG!r}, '<checkpoints>/{step_dir.name}') in "
+              f"{time.perf_counter() - t:.1f}s")
+        paths = [dataset / f"videos/chunk-000/observation.images.{c}/episode_000000.mp4" for c in AGILEX_CAMERAS]
+        kai0_batch = registry["KAI0"]["batch_size"]
+        pi06_batch = _eval_batch(registry["PI06"]["batch_size"], n)
+        print(f"  reckoned peak of a forward: {_eval_peak_gib(kai0_batch, n):.3f} GiB at batch {kai0_batch}, "
+              f"{_eval_peak_gib(registry['PI06']['batch_size'], n):.3f} GiB at {registry['PI06']['batch_size']}; "
+              f"1-timestep mode runs at {pi06_batch}")
+        launches["eval"] = _evaluate(evaluator, paths, prompt, "2timesteps", kai0_batch, ADVANTAGE_FRAMES)
+        _evaluate(evaluator, paths, prompt, "1timestep", pi06_batch, ADVANTAGE_FRAMES)
+
+        # One batch with the kernels and through the plain attention, and one profiled forward.
+        cams = evaluator._load_videos(paths, 1)
+        rows = list(range(kai0_batch))
+        tokens, token_masks = evaluator.tokenizer.tokenize(prompt)
+        batch = ([c[[0] * kai0_batch] for c in cams], [c[rows] for c in cams], tokens, token_masks)
+        evaluator.batch_size = kai0_batch
+        kernel = evaluator._infer_values(*batch)
+        _reset_launches()
+        with _PlainAttention():
+            plain = evaluator._infer_values(*batch)
+        _check(sum(_read_launches().values()) == 0, "the plain forward launched a kernel")
+        err = np.abs(kernel - plain)
+        print(f"  one batch of {kai0_batch}, kernels vs plain attention on the card (bf16): max abs {err.max():.4e}, "
+              f"mean abs {err.mean():.4e} (|values| max {np.abs(plain).max():.4f}, mean {np.abs(plain).mean():.4f})")
+        _check(err.max() <= BF16_SAMPLE_TOL["max"] * np.abs(plain).max()
+               and err.mean() <= BF16_SAMPLE_TOL["mean"] * np.abs(plain).mean(), "kernels vs plain attention")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            evaluator._infer_values(*batch)
+            torch.cuda.synchronize()
+        families, busy_ms, attention = _profile_families(prof)
+        print(f"  profiled forward at batch {kai0_batch}: summed device time {busy_ms:.2f} ms; by kernel family: "
+              + "; ".join(f"{fam} {ms:.2f} ms x{count}" for fam, (ms, count) in
+                          sorted(families.items(), key=lambda kv: -kv[1][0]))
+              + "; attention: " + "; ".join(f"{k} {ms:.2f} ms x{c}" for k, (ms, c) in attention.items()))
+        del cams, batch
+
+        # (f) annotate every episode, discretize, read the labels back as AWBC prompts
+        t = time.perf_counter()
+        written = annotate.annotate_dataset(evaluator, dataset, prompt=prompt, output_tag="KAI0_smoke",
+                                            mode=registry["KAI0"]["mode"], relative_interval=ADVANTAGE_INTERVAL,
+                                            batch_size=kai0_batch)
+        annotate_s = time.perf_counter() - t
+        evaluator.shutdown()
+        del evaluator
+        torch.cuda.empty_cache()
+        stats = discretize.discretize_dataset(dataset, threshold=ADVANTAGE_THRESHOLD, discretion_type="binary",
+                                              data_glob="data_KAI0_smoke/chunk-*/*.parquet", base_prompt=prompt)
+        (dataset / "data").rename(dataset / "data_base")
+        (dataset / "data_KAI0_smoke").rename(dataset / "data")
+        awbc = train_config.get_config("pi05_flatten_fold_awbc")
+        awbc_data = dataclasses.replace(awbc.data, repo_id=str(dataset)).create(awbc.assets_dirs, awbc.model)
+        items = data_loader.create_dataset(awbc_data, awbc.model)
+        t = time.perf_counter()
+        prompts = [items[i]["prompt"] for i in range(len(items))]
+        read_s = time.perf_counter() - t
+        positive = sum(p.endswith(", Advantage: positive") for p in prompts) / len(prompts)
+        print(f"advantage: annotated {len(written)} episodes in {annotate_s:.1f}s; discretized (binary, threshold "
+              f"{ADVANTAGE_THRESHOLD}): absolute_advantage mean {stats[0]['mean']:.6f}, p30 "
+              f"{stats[0]['percentiles'][30]:.6f}; read back through pi05_flatten_fold_awbc's data config in "
+              f"{read_s:.1f}s: {len(prompts)} prompts, {positive:.4f} positive, e.g. {prompts[0]!r}")
+        _check(len(written) == ADVANTAGE_EPISODES and len(prompts) == ADVANTAGE_EPISODES * ADVANTAGE_FRAMES
+               and all(p.endswith((", Advantage: positive", ", Advantage: negative")) for p in prompts)
+               and abs(positive - ADVANTAGE_THRESHOLD / 100) <= 0.1, f"AWBC labels: {positive} positive")
+    print(f"advantage: temporary files deleted; {torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is false; the port runs only on a CUDA card", file=sys.stderr)
@@ -2415,6 +2744,7 @@ def main() -> int:
     int8_launches, _ = train("lora_int8")
     entry_launches = serve_entry()
     train_entry_launches = train_entry()
+    advantage_launches = stage_advantage()
 
     sources = {
         "flash_mha": ("kai0_tpu_torch/ops/csrc/flash_mqa_fwd.cu", "kai0_tpu/ops/pallas_attention.py:109"),
@@ -2466,6 +2796,14 @@ def main() -> int:
         entry_train = train_entry_launches["lora_int8" if name in int8_kernels else "full"]
         _check(entry_train[name] > 0, f"{name} was not launched on the training entry path")
         entry["launches_train_entry"] = entry_train[name]
+        # launches_advantage_train: phase 19's 4 estimator steps through train_lib.main; launches_advantage_eval: its
+        # 2-timestep evaluation of one episode (6 forwards at batch 160); each counted from 0 set just before.
+        if name in ("flash_mha", "flash_mha_bwd", "flash_mhsa", "flash_mhsa_bwd", "adam_q8"):
+            _check(advantage_launches["train"][name] > 0, f"{name} was not launched by the estimator's training")
+            entry["launches_advantage_train"] = advantage_launches["train"][name]
+        if name in ("flash_mha", "flash_mhsa"):
+            _check(advantage_launches["eval"][name] > 0, f"{name} was not launched by the estimator's evaluation")
+            entry["launches_advantage_eval"] = advantage_launches["eval"][name]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,8 @@ processes (``kai0_tpu_torch.training.data_loader``), so the parquet tables go
 through a thread-safe LRU and the ``cv2.VideoCapture`` objects, which are not
 thread-safe, are kept per thread. ``pyarrow`` (parquet) and ``cv2`` (mp4) are
 imported by the functions that use them; without either, reading raises
-``ImportError`` naming the package. Nothing substitutes for them: the decoder
-the card's machine will use is ROADMAP Queue 1 item 4.
+``ImportError`` naming the package. Nothing substitutes for them; the card's
+machine has both.
 
 A repo id is a local path, or a directory under ``$LEROBOT_HOME`` when that is
 set; the port downloads nothing.
@@ -38,10 +38,7 @@ def _require(module: str, package: str, purpose: str):
     try:
         return importlib.import_module(module)
     except ImportError as e:
-        raise ImportError(
-            f"the LeRobot reader needs {package} to {purpose}, and it does not import here ({e}); the decoder "
-            "of the card's machine is ROADMAP Queue 1 item 4"
-        ) from e
+        raise ImportError(f"the LeRobot reader needs {package} to {purpose}, and it does not import here ({e})") from e
 
 
 def resolve_dataset_root(repo_id: str) -> pathlib.Path:
@@ -195,17 +192,25 @@ class LeRobotDataset:
 
     def __getitem__(self, index: int) -> dict:
         episode_index, frame_index = self.locate(index)
+        return self.get_frame(episode_index, frame_index)
+
+    def get_frame(self, episode_index: int, frame_index: int, *, key_prefix: str = "") -> dict:
+        """One frame of an episode: its scalar columns, its action chunks (clamped to the episode) and its decoded
+        video frames, every key prefixed by ``key_prefix`` (``kai0_tpu/data/lerobot_dataset.py:203-240``; the
+        advantage dataset reads its comparison frame as ``his_-100_*``)."""
         table = self._tables.get(episode_index)
         length = self._episode_lengths[episode_index]
         item: dict = {}
         for name, col in table.items():
             if name in self._action_sequence_keys:
                 idx = np.minimum(np.arange(frame_index, frame_index + self._action_horizon), length - 1)
-                item[name] = np.asarray(col[idx])
+                item[key_prefix + name] = np.asarray(col[idx])
             else:
-                item[name] = col[frame_index]
+                item[key_prefix + name] = col[frame_index]
         for video_key in self.metadata.video_keys:
-            item[video_key] = self._videos.read_frame(self.metadata.video_path(episode_index, video_key), frame_index)
+            item[key_prefix + video_key] = self._videos.read_frame(
+                self.metadata.video_path(episode_index, video_key), frame_index
+            )
         return item
 
 

@@ -1,7 +1,8 @@
 """LeRobot dataset metadata: info.json / episodes.jsonl / tasks.jsonl and the file paths.
 
 The port's own copy of ``kai0_tpu/data/lerobot_meta.py:29-123`` (the LeRobot
-v2.x on-disk contract, read side), so that the port imports nothing of the JAX package.
+v2.x on-disk contract: read, and written by ``lerobot_writer.py`` and the
+Stage Advantage tools), so that the port imports nothing of the JAX package.
 The layout:
 
     meta/info.json        — fps, features schema, path templates, totals
@@ -19,6 +20,7 @@ import json
 import pathlib
 from typing import Any
 
+CODEBASE_VERSION = "v2.1"
 DEFAULT_CHUNK_SIZE = 1000
 DEFAULT_DATA_PATH = "data/chunk-{episode_chunk:03d}/episode_{episode_index:06d}.parquet"
 DEFAULT_VIDEO_PATH = "videos/chunk-{episode_chunk:03d}/{video_key}/episode_{episode_index:06d}.mp4"
@@ -27,6 +29,14 @@ DEFAULT_VIDEO_PATH = "videos/chunk-{episode_chunk:03d}/{video_key}/episode_{epis
 def read_jsonl(path: pathlib.Path) -> list[dict]:
     with open(path) as f:
         return [json.loads(line) for line in f if line.strip()]
+
+
+def write_jsonl(path: pathlib.Path, rows: list[dict]) -> None:
+    """One ``json.dumps(row)`` a line, as the JAX package writes them (its files, byte for byte)."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        for row in rows:
+            f.write(json.dumps(row) + "\n")
 
 
 @dataclasses.dataclass
@@ -78,3 +88,30 @@ class LeRobotMetadata:
             video_key=video_key,
         )
 
+    def save(self) -> None:
+        meta_dir = self.root / "meta"
+        meta_dir.mkdir(parents=True, exist_ok=True)
+        with open(meta_dir / "info.json", "w") as f:
+            json.dump(self.info, f, indent=2)
+        write_jsonl(meta_dir / "episodes.jsonl", self.episodes)
+        write_jsonl(meta_dir / "tasks.jsonl", [{"task_index": i, "task": t} for i, t in sorted(self.tasks.items())])
+
+
+def new_info(features: dict[str, dict], fps: float, *, robot_type: str = "unknown",
+             chunks_size: int = DEFAULT_CHUNK_SIZE) -> dict:
+    """``info.json`` of an empty dataset."""
+    return {
+        "codebase_version": CODEBASE_VERSION,
+        "robot_type": robot_type,
+        "total_episodes": 0,
+        "total_frames": 0,
+        "total_tasks": 0,
+        "total_videos": 0,
+        "total_chunks": 0,
+        "chunks_size": chunks_size,
+        "fps": fps,
+        "splits": {},
+        "data_path": DEFAULT_DATA_PATH,
+        "video_path": DEFAULT_VIDEO_PATH,
+        "features": features,
+    }

@@ -22,7 +22,9 @@
   shape and data offsets, then the raw little-endian bytes), with the standard
   library and torch only; bf16 crosses as a 2-byte integer view.
   ``load_torch_checkpoint`` reads a checkpoint in the ``PI0Pytorch`` key
-  layout into the model, counterpart of
+  layout into the model (the advantage estimator's too, whose head is
+  ``value_head.{0,2,4}``, as ``kai0_tpu/interop/torch_safetensors.py:320-321``
+  names it; a π₀.₅ model skips those keys), counterpart of
   ``kai0_tpu/interop/torch_safetensors.py:405``, and ``save_torch_checkpoint``
   writes one (``:393``); ``is_torch_checkpoint`` is the reference's detection
   rule and ``load_norm_stats`` reads ``<assets>/<asset_id>/norm_stats.json``

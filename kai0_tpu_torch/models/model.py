@@ -2,10 +2,14 @@
 
 Counterpart of ``kai0_tpu/models/model.py``: the ``ModelType`` enum,
 ``Observation`` with the nested-dict contract of ``from_dict`` (uint8 images
-mapped to [-1, 1]) and ``preprocess_observation``: images that are not
-224×224 are resized with padding (``image_tools.resize_with_pad``, antialiased
-as ``jax.image.resize``), and the train branch augments them (crop and
-rotation only where ``"wrist"`` is not in the camera key).
+mapped to [-1, 1], and the advantage estimator's per-sample ``episode_index``,
+``frame_index``, ``progress`` and ``episode_length``) and
+``preprocess_observation``: images that are not 224×224 are resized with
+padding (``image_tools.resize_with_pad``, antialiased as ``jax.image.resize``),
+and the train branch augments them (crop and rotation only where ``"wrist"``
+is not in the camera key). It keeps the ``IMAGE_KEYS`` cameras only, as JAX's
+does: the estimator's history cameras (``*_-100_rgb``) are accepted and
+dropped there, so they never reach the model.
 """
 
 from __future__ import annotations
@@ -53,6 +57,12 @@ class Observation:
     tokenized_prompt: torch.Tensor | None = None
     tokenized_prompt_mask: torch.Tensor | None = None
 
+    # Advantage-estimator fields (``kai0_tpu/models/model.py:74-78``).
+    episode_index: torch.Tensor | None = None
+    frame_index: torch.Tensor | None = None
+    progress: torch.Tensor | None = None
+    episode_length: torch.Tensor | None = None
+
     @classmethod
     def from_dict(cls, data: dict) -> "Observation":
         """From the transform-chain dict: ``image``, ``image_mask``, ``state``, ``tokenized_prompt[_mask]``."""
@@ -64,6 +74,10 @@ class Observation:
             state=data["state"],
             tokenized_prompt=data.get("tokenized_prompt"),
             tokenized_prompt_mask=data.get("tokenized_prompt_mask"),
+            episode_index=data.get("episode_index"),
+            frame_index=data.get("frame_index"),
+            progress=data.get("progress"),
+            episode_length=data.get("episode_length"),
         )
 
 

@@ -151,6 +151,18 @@ class _Node(nn.Module):
             setattr(self, name, child)
 
 
+def draw_noise_and_time(shape, generator, device, noise=None, time=None):
+    """The flow's noise ~ N(0, 1) of ``shape``, then time ~ Beta(1.5, 1)·0.999 + 0.001 per row, from ``generator``;
+    a given ``noise`` or ``time`` is kept (and not drawn)."""
+    if noise is None:
+        noise = torch.randn(shape, generator=generator, device=device)
+    if time is None:
+        # Beta(1.5, 1) has CDF x^1.5: invert it on a uniform draw.
+        u = torch.rand(shape[0], generator=generator, device=device)
+        time = u ** (1 / 1.5) * 0.999 + 0.001
+    return noise, time
+
+
 def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     """x·Wᵀ + b in x's dtype (the projection heads run in f32 on f32 inputs)."""
     return x @ layer.weight.to(x.dtype).T + layer.bias.to(x.dtype)
@@ -296,16 +308,22 @@ class Pi0(nn.Module):
             observation, train=train, augment_params=augment_params, generator=generator
         )
         actions = actions.float()
-        if noise is None:
-            noise = torch.randn(actions.shape, generator=generator, device=actions.device)
-        if time is None:
-            # Beta(1.5, 1) has CDF x^1.5: invert it on a uniform draw.
-            u = torch.rand(actions.shape[0], generator=generator, device=actions.device)
-            time = u ** (1 / 1.5) * 0.999 + 0.001
+        noise, time = draw_noise_and_time(actions.shape, generator, actions.device, noise, time)
         t = time[:, None, None]
         x_t = t * noise + (1 - t) * actions
         u_t = noise - actions
 
+        suffix_out = self.suffix_forward(observation, x_t, time, remat=remat)
+        v_t = _linear(suffix_out[:, -self.config.action_horizon :].float(), self.action_out_proj)
+        return torch.mean(torch.square(v_t - u_t), dim=-1)
+
+    def suffix_forward(
+        self, observation: _model.Observation, x_t: torch.Tensor, time: torch.Tensor, *, remat: bool = True
+    ) -> torch.Tensor:
+        """The joint prefix + suffix pass through both experts, no KV cache: the suffix expert's output tokens.
+
+        Positions are ``cumsum(input_mask) − 1``; ``observation`` is preprocessed.
+        """
         prefix_tokens, prefix_mask, prefix_ar_mask = self.embed_prefix(observation, remat=remat)
         suffix_tokens, suffix_mask, suffix_ar_mask, adarms_cond = self.embed_suffix(observation, x_t, time)
         input_mask = torch.cat([prefix_mask, suffix_mask], dim=1)
@@ -322,8 +340,7 @@ class Pi0(nn.Module):
             remat=remat,
             return_kv_cache=False,
         )
-        v_t = _linear(suffix_out[:, -self.config.action_horizon :].float(), self.action_out_proj)
-        return torch.mean(torch.square(v_t - u_t), dim=-1)
+        return suffix_out
 
     # -- sampling ----------------------------------------------------------------------
 

@@ -67,7 +67,9 @@ def jax_param_path(name: str) -> str:
     Gemma names map leaf for leaf (a ``QuantLinear``'s ``qweight`` / ``scale``
     map to the weight they replace). SigLIP names are not translated one by
     one: they come back as ``PaliGemma/img/<port tail>``, which is all that the
-    path predicates (``llm``, the ``_1`` expert suffix, ``lora``) read.
+    path predicates (``llm``, the ``_1`` expert suffix, ``lora``) read. The
+    advantage estimator's ``value_head.{0,2,4}`` are ``value_head/Dense_{0,1,2}``
+    (``kai0_tpu/interop/torch_safetensors.py:320-321``).
     """
     for root, sfx in EXPERT_ROOTS:
         if name.startswith(root + "."):
@@ -78,4 +80,6 @@ def jax_param_path(name: str) -> str:
     if name.startswith((f"{PG}.vision_tower.", f"{PG}.multi_modal_projector.")):
         return "PaliGemma/img/" + name[len(PG) + 1:].replace(".", "/")
     module, _, leaf = name.rpartition(".")
+    if m := re.fullmatch(r"value_head\.([024])", module):  # the estimator's head: Dense_0-2 (torch 0, 2, 4)
+        module = f"value_head/Dense_{int(m.group(1)) // 2}"
     return f"{module}/{'kernel' if leaf == 'weight' else leaf}"

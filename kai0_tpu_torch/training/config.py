@@ -203,7 +203,7 @@ class TrainConfig:
     resume: bool = False
     # Metrics logging (metrics.jsonl always; wandb when it imports and this is on).
     wandb_enabled: bool = True
-    advantage_estimator: bool = False  # the advantage estimator's data: ROADMAP Queue 1 item 7
+    advantage_estimator: bool = False  # the loader pairs each frame with a comparison frame (AdvantageLerobotDataset)
     split: str = "all"  # one of ['train', 'val', 'all']
     drop_last: bool = True
     skip_norm_stats: bool = False

@@ -8,9 +8,11 @@ Counterpart of ``kai0_tpu/training/data_loader.py:52-428``:
   JAX's bit for bit.
 - ``transform_stack``: repack -> robot data transforms -> Normalize -> model
   transforms; ``create_dataset``: fake data or a LeRobot dataset (episode
-  subset, per-task split, the prompt from the task). The JAX package's
-  train-time mirror and time-scale views, the advantage estimator's dataset
-  and the RLDS stream raise with the ROADMAP item that ports them.
+  subset, per-task split, the prompt from the task), for the advantage
+  estimator wrapped in ``AdvantageLerobotDataset`` (each frame paired with a
+  comparison frame of its episode). The JAX package's train-time mirror and
+  time-scale views and the RLDS stream raise with the ROADMAP item that ports
+  them.
 - ``DataLoader`` walks JAX's index stream (a permutation seeded by
   ``seed + epoch`` per epoch, the last partial batch dropped with
   ``drop_last``) and collates items with ``np.stack`` (64-bit arrays then
@@ -85,10 +87,8 @@ def transform_stack(data_config, model_config) -> list:
 
 
 def create_dataset(data_config, model_config, *, advantage: bool = False, split: str = "all"):
-    """Fake data, or a LeRobot dataset with action chunking (``episodes`` subset, per-task ``split``)."""
-    if advantage:
-        raise NotImplementedError("the advantage estimator's dataset is ROADMAP Queue 1 item 7; the port has no "
-                                  "advantage_estimator yet")
+    """Fake data, or a LeRobot dataset with action chunking (``episodes`` subset, per-task ``split``);
+    ``advantage`` pairs each frame with a comparison frame (``AdvantageLerobotDataset``)."""
     augment = data_config.augment_time_scale != 1 or data_config.augment_mirror
     repo_id = data_config.repo_id
     if repo_id is None or repo_id == "fake":
@@ -96,6 +96,9 @@ def create_dataset(data_config, model_config, *, advantage: bool = False, split:
         if augment:
             raise ValueError("train-time augmentation requires a real LeRobot dataset, not fake data")
         return FakeDataset(model_config, num_samples=_FAKE_SAMPLES)
+    if augment and advantage:
+        # Estimator training runs unaugmented (reference pi0_pytorch.py:487) on the raw episode structure.
+        raise ValueError("train-time augmentation is not supported for advantage-estimator datasets")
     if augment:
         raise NotImplementedError("augment_mirror / augment_time_scale: the train-time views "
                                   "(kai0_tpu/data/augment_views.py) are ROADMAP Queue 1 item 12")
@@ -113,6 +116,10 @@ def create_dataset(data_config, model_config, *, advantage: bool = False, split:
     dataset = open_dataset(list(data_config.episodes) if data_config.episodes is not None else None)
     if split != "all":
         dataset = open_dataset(lerobot_dataset.episodes_split_through_task(dataset, split))
+    if advantage:
+        from kai0_tpu_torch.data import advantage_dataset
+
+        dataset = advantage_dataset.AdvantageLerobotDataset(dataset)
     if data_config.prompt_from_task:
         return TransformedDataset(dataset, [_transforms.PromptFromLeRobotTask(dataset.tasks)])
     return dataset

@@ -5,7 +5,8 @@ factories of Aloha, Libero, Agilex, ARX and DROID (each builds the repack,
 robot and model transform groups and reads the norm stats), and every named
 π₀.₅ config, among them the six kai0 task configs
 (``pi05_{flatten_fold,tee_shirt_sort,hang_cloth}_{normal,awbc}``) and the
-RTC serving config ``pi05_rtc_flatten_fold_inference``, with the training
+RTC serving config ``pi05_rtc_flatten_fold_inference`` and the two Stage
+Advantage estimators ``ADVANTAGE_TORCH_{KAI0,PI06}_FLATTEN_FOLD``, with the training
 fields of the JAX configs (weight loaders, step counts, batch sizes, workers,
 retention). A weight loader reads a local ``model.safetensors``; the JAX
 configs' ``gs://`` checkpoints raise when loaded (the port downloads nothing).
@@ -21,6 +22,7 @@ import dataclasses
 import pathlib
 
 from kai0_tpu_torch import transforms as _transforms
+from kai0_tpu_torch.models import advantage as _advantage_model
 from kai0_tpu_torch.models import pi0 as pi0_config
 from kai0_tpu_torch.models import pi0_rtc as pi0_rtc_config
 from kai0_tpu_torch.policies import agilex_policy, aloha_policy, arx_policy, droid_policy, libero_policy
@@ -45,10 +47,6 @@ PENDING = {
         _FAST,
     ),
     **dict.fromkeys(("pi05_full_droid_finetune", "pi05_droid_jointpos_polaris"), _RLDS),
-    **dict.fromkeys(
-        ("ADVANTAGE_TORCH_KAI0_FLATTEN_FOLD", "ADVANTAGE_TORCH_PI06_FLATTEN_FOLD"),
-        "the advantage estimator (ROADMAP Queue 1 item 7)",
-    ),
 }
 
 
@@ -315,6 +313,31 @@ def _kai0_finetune(name: str, task: str, *, awbc: bool = False) -> _config.Train
     )
 
 
+def _kai0_advantage(name: str, task: str) -> _config.TrainConfig:
+    """The Stage Advantage estimator of a kai0 task (``kai0_tpu/training/robot_configs.py:350-375``): π₀.₅ with a
+    value head, trained on the value loss alone over the annotated dataset's train split."""
+    dataset_dir, prompt, data_cls = _KAI0_TASKS[task]
+    return _config.TrainConfig(
+        name=name,
+        advantage_estimator=True,
+        model=_advantage_model.AdvantageEstimatorConfig(
+            pi05=True, loss_value_weight=1.0, loss_action_weight=0.0, discrete_state_input=False
+        ),
+        data=data_cls(
+            repo_id=f"data/{dataset_dir}/annotated",
+            default_prompt=prompt,
+            use_delta_joint_actions=False,
+            advantage_fields=True,
+        ),
+        weight_loader=weight_loaders.CheckpointWeightLoader(_PI05_BASE_CKPT),
+        num_train_steps=30_000,
+        keep_period=5000,
+        num_workers=8,
+        batch_size=32,
+        split="train",
+    )
+
+
 def configs() -> list[_config.TrainConfig]:
     TrainConfig = _config.TrainConfig
     return [
@@ -371,6 +394,9 @@ def configs() -> list[_config.TrainConfig]:
         _kai0_finetune("pi05_flatten_fold_awbc", "flatten_fold", awbc=True),
         _kai0_finetune("pi05_tee_shirt_sort_awbc", "tee_shirt_sort", awbc=True),
         _kai0_finetune("pi05_hang_cloth_awbc", "hang_cloth", awbc=True),
+        _kai0_advantage("ADVANTAGE_TORCH_KAI0_FLATTEN_FOLD", "flatten_fold"),
+        # PI06 variant: the same estimator, evaluated on absolute values (1-timestep mode).
+        _kai0_advantage("ADVANTAGE_TORCH_PI06_FLATTEN_FOLD", "flatten_fold"),
         # RTC inference config (serving only; the data and weights of the flatten-fold fine-tune).
         TrainConfig(
             name="pi05_rtc_flatten_fold_inference",

@@ -14,6 +14,11 @@ the model (``_load_weights_and_validate``).
   model does not have and fills the missing keys that match ``.*lora.*``
   from the fresh init (``_merge_params``). A JAX Orbax checkpoint reaches the
   port through ``kai0_tpu.interop.save_torch_checkpoint``, which writes one.
+  Only LoRA keys are filled: a π₀.₅ checkpoint, which has no
+  ``value_head.*``, cannot start an advantage estimator, and the validation
+  refuses it as the JAX package's ``check_pytree_equality`` does
+  (``kai0_tpu/training/weight_loaders.py:48-49``, ``train_lib.py:44``); an
+  estimator starts from an estimator checkpoint.
 - ``PaliGemmaWeightLoader`` raises: its weights are a ``gs://`` download and
   the port downloads nothing.
 """

@@ -17,7 +17,8 @@
   the 70 frames. Two spawn workers give the batches of the producer thread.
 - The index stream: equal to JAX's across an epoch boundary, with and
   without ``drop_last``.
-- The augmentation views, the advantage dataset and the RLDS stream raise.
+- The augmentation views and the RLDS stream raise; ``advantage=True`` builds
+  the advantage estimator's dataset.
 """
 
 import dataclasses
@@ -196,8 +197,10 @@ def test_unported_data_paths_raise(dataset_root):
     for flag in (dict(augment_mirror=True), dict(augment_time_scale=2)):
         with pytest.raises(NotImplementedError, match="item 12"):
             data_loader.create_dataset(dataclasses.replace(lerobot, **flag), cfg.model)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        data_loader.create_dataset(lerobot, cfg.model, advantage=True)
+    from kai0_tpu_torch.data import advantage_dataset
+
+    paired = data_loader.create_dataset(lerobot, cfg.model, advantage=True)
+    assert isinstance(paired, advantage_dataset.AdvantageLerobotDataset) and len(paired) == sum(LENGTHS)
     rlds = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, base_config=torch_config.DataConfig(
         rlds_data_dir="/nonexistent")))
     with pytest.raises(NotImplementedError, match="item 4"):
