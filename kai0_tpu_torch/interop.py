@@ -10,6 +10,11 @@
   ``.../mlp/gating_einsum_lora_b`` of shape ``[L, 2, r, F]``, the ``_1`` twins
   of the action expert) as the port's per-layer parameters, which keep the
   JAX shapes without the depth axis.
+- ``state_from_jax``: the whole state dict of a port model (π₀, π₀.₅, the
+  advantage estimator or π₀-FAST) from a flattened JAX tree, leaf by leaf
+  from each parameter's name: the weight function that carries a JAX π₀-FAST
+  tree (which the JAX package's ``torch_safetensors`` does not map) into the
+  port, and for the other models the same values as ``jax_to_torch_state``.
 - ``quant_state_from_jax``: quantized weights (JAX's ``QuantArray.q [L, K, N]``
   and ``.s [L, N]``) as the ``qweight [N, K]`` / ``scale [N]`` buffers of the
   port's ``QuantLinear`` holders. JAX quantizes the stacked ``kv_einsum`` and
@@ -48,7 +53,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from kai0_tpu_torch.param_paths import EXPERT_ROOTS, LAYER_LEAVES, LLM, LORA_TAILS
+from kai0_tpu_torch.param_paths import EXPERT_ROOTS, LAYER_LEAVES, LLM, LORA_TAILS, PG, jax_param_path
 from kai0_tpu_torch.shared import normalize as _normalize
 
 logger = logging.getLogger("kai0_tpu_torch")
@@ -81,6 +86,92 @@ def lora_state_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]
                 for i, value in enumerate(np.asarray(flat[key])):
                     state[f"{root}.layers.{i}.{tail}"] = value
     return state
+
+
+_VIT = f"{PG}.vision_tower.vision_model."
+_IMG = "PaliGemma/img"
+_VIT_LEAVES = {  # the port's tail under the tower -> (JAX leaf, stacked over layers)
+    "embeddings.patch_embedding.weight": "embedding/kernel",
+    "embeddings.patch_embedding.bias": "embedding/bias",
+    "embeddings.position_embedding.weight": "pos_embedding",
+    "post_layernorm.weight": "Transformer/encoder_norm/scale",
+    "post_layernorm.bias": "Transformer/encoder_norm/bias",
+}
+_VIT_LAYER_LEAVES = {
+    "layer_norm1.weight": "LayerNorm_0/scale", "layer_norm1.bias": "LayerNorm_0/bias",
+    "layer_norm2.weight": "LayerNorm_1/scale", "layer_norm2.bias": "LayerNorm_1/bias",
+    **{f"self_attn.{p[0]}_proj.{leaf}": f"MultiHeadDotProductAttention_0/{p}/{jax_leaf}"
+       for p in ("query", "key", "value") for leaf, jax_leaf in (("weight", "kernel"), ("bias", "bias"))},
+    "self_attn.out_proj.weight": "MultiHeadDotProductAttention_0/out/kernel",
+    "self_attn.out_proj.bias": "MultiHeadDotProductAttention_0/out/bias",
+    "mlp.fc1.weight": "MlpBlock_0/Dense_0/kernel", "mlp.fc1.bias": "MlpBlock_0/Dense_0/bias",
+    "mlp.fc2.weight": "MlpBlock_0/Dense_1/kernel", "mlp.fc2.bias": "MlpBlock_0/Dense_1/bias",
+}
+
+
+def _vit_value(flat: Mapping[str, np.ndarray], tail: str) -> np.ndarray:
+    """A SigLIP tower parameter (``tail`` under ``vision_tower.vision_model``) from the JAX tree."""
+    if tail in _VIT_LEAVES:
+        value = np.asarray(flat[f"{_IMG}/{_VIT_LEAVES[tail]}"])
+        if tail == "embeddings.patch_embedding.weight":
+            return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        return value[0] if tail == "embeddings.position_embedding.weight" else value
+    m = re.fullmatch(r"encoder\.layers\.(\d+)\.(.+)", tail)
+    i, leaf = int(m.group(1)), m.group(2)
+    value = np.asarray(flat[f"{_IMG}/Transformer/encoderblock/{_VIT_LAYER_LEAVES[leaf]}"][i])
+    if leaf.startswith("self_attn.out_proj.weight"):
+        return value.reshape(-1, value.shape[-1]).T  # [N, h, D] -> [D, N·h]
+    if leaf.startswith("self_attn.") and leaf.endswith(".weight"):
+        return value.transpose(1, 2, 0).reshape(-1, value.shape[0])  # [D, N, h] -> [N·h, D]
+    if leaf.startswith("self_attn.") and leaf.endswith(".bias"):
+        return value.reshape(-1)
+    return value.T if leaf.endswith("weight") and value.ndim == 2 else value
+
+
+def _gemma_value(flat: Mapping[str, np.ndarray], name: str, tail: str) -> np.ndarray:
+    """A Gemma parameter of the port (``tail`` under its expert's root) from the JAX tree."""
+    value = np.asarray(flat[jax_param_path(name)])
+    m = re.fullmatch(r"layers\.(\d+)\.(.+)", tail)
+    if m is None:  # the embedding and the final norm
+        return value.T if tail == "norm.dense.weight" else value
+    value, leaf = value[int(m.group(1))], m.group(2)
+    if leaf in ("self_attn.q_proj.weight", "self_attn.k_proj.weight", "self_attn.v_proj.weight"):
+        if leaf != "self_attn.q_proj.weight":
+            value = value["kv".index(leaf[10])]  # kv_einsum stacks K then V
+        return value.transpose(0, 2, 1).reshape(-1, value.shape[1])  # [N, D, H] -> [N·H, D]
+    if leaf == "self_attn.o_proj.weight":
+        return value.reshape(-1, value.shape[-1]).T  # [N, H, D] -> [D, N·H]
+    if leaf in ("mlp.gate_proj.weight", "mlp.up_proj.weight"):
+        return value[0 if leaf == "mlp.gate_proj.weight" else 1].T  # gating_einsum [2, D, F]
+    if "lora" in leaf:
+        return value
+    return value.T if leaf.endswith("weight") and value.ndim == 2 else value
+
+
+def state_from_jax(flat: Mapping[str, np.ndarray], model: nn.Module) -> dict[str, np.ndarray]:
+    """Every entry of ``model.state_dict()`` from a flattened JAX tree (``a/b/c`` keys), as numpy arrays.
+
+    Gemma leaves map through ``param_paths.jax_param_path`` (per layer, heads
+    flattened, ``kv_einsum`` and ``gating_einsum`` split); SigLIP's through the
+    HF tower layout; the flat heads (``action_in_proj``, ``state_proj``,
+    ``value_head.{0,2,4}`` ...) as ``kernel.T`` and ``bias``. An int8 holder's
+    codes are not mapped (``quant_state_from_jax``): quantize after loading.
+    """
+    state = {}
+    for name in model.state_dict():
+        if name.startswith(_VIT):
+            state[name] = _vit_value(flat, name[len(_VIT):])
+            continue
+        root = next((r for r, _ in EXPERT_ROOTS if name.startswith(r + ".")), None)
+        if root is not None:
+            state[name] = _gemma_value(flat, name, name[len(root) + 1:])
+            continue
+        path = jax_param_path(name)
+        if name.startswith(f"{PG}.multi_modal_projector.linear."):
+            path = f"{_IMG}/head/{'kernel' if name.endswith('weight') else 'bias'}"
+        value = np.asarray(flat[path])
+        state[name] = value.T if name.endswith(".weight") else value
+    return {k: np.ascontiguousarray(v) for k, v in state.items()}
 
 
 def quant_state_from_jax(flat: Mapping[str, tuple[np.ndarray, np.ndarray]]) -> dict[str, np.ndarray]:

@@ -177,6 +177,32 @@ def embed(model: GemmaModel, tokens: torch.Tensor, embed_dtype: torch.dtype) -> 
     return x.to(embed_dtype)
 
 
+def decode_logits(model: GemmaModel, x: torch.Tensor) -> torch.Tensor:
+    """Hidden states onto the vocabulary through the tied embedding, in x's dtype (``kai0_tpu/models/gemma.py:322``)."""
+    return x @ model.embed_tokens.weight.to(x.dtype).T
+
+
+def project_qkv(attn: Attention, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One expert's q [B,T,N,H] and k, v [B,T,K,H] (before RoPE), LoRA terms included."""
+    c = attn.config
+    b, t, _ = x.shape
+    q = _lora.linear(x, attn.q_proj).view(b, t, c.num_heads, c.head_dim)
+    if hasattr(attn, "kv_proj"):  # frozen int8: K and V are one quantized matrix, as JAX's stacked kv_einsum leaf
+        k, v = _lora.linear(x, attn.kv_proj).view(b, t, 2, c.num_kv_heads, c.head_dim).unbind(dim=2)
+    else:
+        k, v = (_lora.linear(x, p).view(b, t, c.num_kv_heads, c.head_dim) for p in (attn.k_proj, attn.v_proj))
+    q = _lora.apply_einsum(q, "BTD,NDH->BTNH", x, *attn.lora("q"), c.lora_attn)
+    if c.lora_attn is not None:
+        k, v = _lora.apply_einsum(torch.stack([k, v]), "BSD,2KDH->2BSKH", x, *attn.lora("kv"), c.lora_attn)
+    return q, k, v
+
+
+def project_out(attn: Attention, encoded: torch.Tensor) -> torch.Tensor:
+    """One expert's output projection of its attention output [B,T,N,H] -> [B,T,D], LoRA terms included."""
+    base = _lora.linear(encoded.reshape(*encoded.shape[:2], -1), attn.o_proj)
+    return _lora.apply_einsum(base, "BTNH,NHD->BTD", encoded, *attn.lora("o"), attn.config.lora_attn)
+
+
 def _attn(
     layers: Sequence[DecoderLayer],
     xs: Sequence[torch.Tensor | None],
@@ -190,16 +216,8 @@ def _attn(
     for x, layer in zip(xs, layers, strict=True):
         if x is None:
             continue
-        attn, c = layer.self_attn, layer.self_attn.config
-        b, t, _ = x.shape
-        q = _lora.linear(x, attn.q_proj).view(b, t, c.num_heads, c.head_dim)
-        if hasattr(attn, "kv_proj"):  # frozen int8: K and V are one quantized matrix, as JAX's stacked kv_einsum leaf
-            k, v = _lora.linear(x, attn.kv_proj).view(b, t, 2, c.num_kv_heads, c.head_dim).unbind(dim=2)
-        else:
-            k, v = (_lora.linear(x, p).view(b, t, c.num_kv_heads, c.head_dim) for p in (attn.k_proj, attn.v_proj))
-        qs.append(_lora.apply_einsum(q, "BTD,NDH->BTNH", x, *attn.lora("q"), c.lora_attn))
-        if c.lora_attn is not None:
-            k, v = _lora.apply_einsum(torch.stack([k, v]), "BSD,2KDH->2BSKH", x, *attn.lora("kv"), c.lora_attn)
+        q, k, v = project_qkv(layer.self_attn, x)
+        qs.append(q)
         ks.append(k)
         vs.append(v)
 
@@ -224,9 +242,7 @@ def _attn(
             out.append(None)
             continue
         end = start + x.shape[1]
-        attn, chunk = layer.self_attn, encoded[:, start:end]
-        base = _lora.linear(chunk.reshape(*chunk.shape[:2], -1), attn.o_proj)
-        out.append(_lora.apply_einsum(base, "BTNH,NHD->BTD", chunk, *attn.lora("o"), attn.config.lora_attn))
+        out.append(project_out(layer.self_attn, encoded[:, start:end]))
         start = end
     return out, (k, v)
 

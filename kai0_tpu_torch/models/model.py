@@ -7,13 +7,16 @@ mapped to [-1, 1], and the advantage estimator's per-sample ``episode_index``,
 ``preprocess_observation``: images that are not 224×224 are resized with
 padding (``image_tools.resize_with_pad``, antialiased as ``jax.image.resize``),
 and the train branch augments them (crop and rotation only where ``"wrist"``
-is not in the camera key). It keeps the ``IMAGE_KEYS`` cameras only, as JAX's
-does: the estimator's history cameras (``*_-100_rgb``) are accepted and
-dropped there, so they never reach the model.
+is not in the camera key). It keeps the ``image_keys`` cameras only
+(``IMAGE_KEYS`` unless the caller names others, as π₀-FAST names its own), as
+JAX's does: the estimator's history cameras (``*_-100_rgb``) are accepted and
+dropped there, so they never reach the model. π₀-FAST's ``token_ar_mask`` and
+``token_loss_mask`` ride along with the prompt.
 """
 
 from __future__ import annotations
 
+from collections.abc import Sequence
 import dataclasses
 import enum
 
@@ -29,6 +32,22 @@ class ModelType(enum.Enum):
     PI05 = "pi05"
     PI0_RTC = "pi0_rtc"
     PI05_RTC = "pi05_rtc"
+
+
+def model_class(model_config) -> type:
+    """The port's model class for ``model_config``: the advantage estimator for an ``AdvantageEstimatorConfig``,
+    else by its model type (``Pi0`` for π₀ and π₀.₅, ``Pi0RTC`` for their RTC types, ``Pi0FAST``)."""
+    from kai0_tpu_torch.models import advantage, pi0, pi0_fast, pi0_rtc
+
+    if isinstance(model_config, advantage.AdvantageEstimatorConfig):
+        return advantage.AdvantageEstimator
+    return {
+        ModelType.PI0: pi0.Pi0,
+        ModelType.PI05: pi0.Pi0,
+        ModelType.PI0_RTC: pi0_rtc.Pi0RTC,
+        ModelType.PI05_RTC: pi0_rtc.Pi0RTC,
+        ModelType.PI0_FAST: pi0_fast.Pi0FAST,
+    }[model_config.model_type]
 
 
 # The model always expects these images.
@@ -57,6 +76,11 @@ class Observation:
     tokenized_prompt: torch.Tensor | None = None
     tokenized_prompt_mask: torch.Tensor | None = None
 
+    # π₀-FAST fields (``kai0_tpu/models/model.py:71-72``): 1 where a prompt token attends causally, and the
+    # tokens the loss reads.
+    token_ar_mask: torch.Tensor | None = None
+    token_loss_mask: torch.Tensor | None = None
+
     # Advantage-estimator fields (``kai0_tpu/models/model.py:74-78``).
     episode_index: torch.Tensor | None = None
     frame_index: torch.Tensor | None = None
@@ -74,6 +98,8 @@ class Observation:
             state=data["state"],
             tokenized_prompt=data.get("tokenized_prompt"),
             tokenized_prompt_mask=data.get("tokenized_prompt_mask"),
+            token_ar_mask=data.get("token_ar_mask"),
+            token_loss_mask=data.get("token_loss_mask"),
             episode_index=data.get("episode_index"),
             frame_index=data.get("frame_index"),
             progress=data.get("progress"),
@@ -87,18 +113,19 @@ def preprocess_observation(
     train: bool = False,
     augment_params: dict[str, dict[str, torch.Tensor]] | None = None,
     generator: torch.Generator | None = None,
+    image_keys: Sequence[str] = IMAGE_KEYS,
 ) -> Observation:
     """Resize images that are not 224×224, augment them when ``train``, default-fill missing image masks with True.
 
     In training each camera's parameters come from ``augment_params[key]`` when
     given (see ``augment.draw_augment_params``), else they are drawn from
-    ``generator``, camera by camera in ``IMAGE_KEYS`` order.
+    ``generator``, camera by camera in ``image_keys`` order.
     """
-    if not set(IMAGE_KEYS).issubset(observation.images):
-        raise ValueError(f"images dict missing keys: expected {IMAGE_KEYS}, got {list(observation.images)}")
+    if not set(image_keys).issubset(observation.images):
+        raise ValueError(f"images dict missing keys: expected {image_keys}, got {list(observation.images)}")
     batch_shape = observation.state.shape[:-1]
     out_images, out_masks = {}, {}
-    for key in IMAGE_KEYS:
+    for key in image_keys:
         image = observation.images[key]
         if tuple(image.shape[1:3]) != IMAGE_RESOLUTION:
             image = _image_tools.resize_with_pad(image, *IMAGE_RESOLUTION)

@@ -1,11 +1,20 @@
-"""π₀.₅ flow-matching VLA, PyTorch: the training loss and the sampler.
+"""π₀ and π₀.₅ flow-matching VLAs, PyTorch: the training loss and the sampler.
 
 Counterpart of ``kai0_tpu/models/pi0.py``. Serving: the prefix (SigLIP tokens
 for each camera + prompt tokens, bidirectional) runs once through the
 PaliGemma expert and leaves a per-layer KV cache; then ``num_steps`` Euler
-steps from t=1 to 0 run the action expert (adaRMS time conditioning) against
-that cache. Training: ``compute_loss`` runs prefix and suffix jointly through
-both experts and returns the flow-matching velocity MSE.
+steps from t=1 to 0 run the action expert against that cache. Training:
+``compute_loss`` runs prefix and suffix jointly through both experts and
+returns the flow-matching velocity MSE.
+
+The two models differ in the suffix only (``embed_suffix``). π₀.₅
+(``pi05=True``) conditions the action expert on time through adaRMS norms fed
+by a swish MLP (``time_mlp_{in,out}``), and its state is in the prompt. π₀ puts
+a state token (``state_proj``) before the action tokens, concatenates the
+sincos time embedding to each action token and mixes them with
+``swish(action_time_mlp_in)`` → ``action_time_mlp_out``; its action expert has
+plain RMSNorms, and its suffix is ``action_horizon + 1`` long, of which the
+head reads the last ``action_horizon``.
 
 Parameters follow the ``PI0Pytorch`` state-dict layout
 (``paligemma_with_expert.paligemma.model.language_model...``,
@@ -13,8 +22,7 @@ Parameters follow the ``PI0Pytorch`` state-dict layout
 output of ``kai0_tpu.interop.torch_safetensors.jax_to_torch_state`` loads with
 ``strict=True``. The ``*_lora`` Gemma variants add LoRA factors (carried across by
 ``kai0_tpu_torch.interop.lora_state_from_jax``), and ``Pi0Config.freeze_filter``
-names the leaves a LoRA fine-tune freezes. Only π₀.₅ (``pi05=True``) is ported;
-the π₀ state-token suffix is not. The model is built on the card unless ``device`` says otherwise.
+names the leaves a LoRA fine-tune freezes. The model is built on the card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -168,11 +176,46 @@ def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return x @ layer.weight.to(x.dtype).T + layer.bias.to(x.dtype)
 
 
+@torch.no_grad()
+def init_weights(model: nn.Module, experts, generator: torch.Generator) -> nn.Module:
+    """Draw every parameter of ``model`` from ``generator`` (on the parameters' device); returns the model.
+
+    Matrices ~ N(0, 1/fan_in); embeddings ~ N(0, 1/width); biases ~ N(0, 0.02²);
+    LayerNorm scales ~ 1 + N(0, 0.1²) and RMSNorm ``w`` ~ N(0, 0.1²) (applied as
+    1+w). The leaves that the JAX init zeroes (adaRMS ``dense``, the SigLIP
+    head) are drawn like the others, so the action expert's gates are open
+    and image tokens reach the actions. The LoRA factors of the Gemma
+    ``experts`` ~ N(0, init_stddev²), both of them (as the JAX init), drawn
+    after everything else.
+    """
+
+    def normal(t, std):
+        t.normal_(0.0, std, generator=generator)
+
+    for module in model.modules():
+        if isinstance(module, (nn.Linear, nn.Conv2d)):
+            normal(module.weight, 1.0 / math.sqrt(module.weight[0].numel()))
+            if module.bias is not None:
+                normal(module.bias, 0.02)
+        elif isinstance(module, nn.Embedding):
+            normal(module.weight, 1.0 / math.sqrt(module.weight.shape[1]))
+        elif isinstance(module, nn.LayerNorm):
+            normal(module.weight, 0.1)
+            module.weight.add_(1.0)
+            normal(module.bias, 0.02)
+        elif isinstance(module, _gemma.RMSNorm):
+            normal(module.weight, 0.1)
+    for expert in experts:
+        for name, p in expert.named_parameters():
+            if "lora" in name:
+                lora = expert.config.lora_attn if "self_attn" in name else expert.config.lora_ffn
+                normal(p, lora.init_stddev)
+    return model
+
+
 class Pi0(nn.Module):
     def __init__(self, config: Pi0Config, *, device="cuda", param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if not config.pi05:
-            raise NotImplementedError("only the π₀.₅ model (pi05=True) is ported")
         self.config = config
         factory = {"device": device, "dtype": param_dtype}
         vlm, expert, vit = config.paligemma_config, config.action_expert_config, config.vision_config
@@ -189,8 +232,13 @@ class Pi0(nn.Module):
         )
         self.action_in_proj = nn.Linear(config.action_dim, expert.width, **factory)
         self.action_out_proj = nn.Linear(expert.width, config.action_dim, **factory)
-        self.time_mlp_in = nn.Linear(expert.width, expert.width, **factory)
-        self.time_mlp_out = nn.Linear(expert.width, expert.width, **factory)
+        if config.pi05:
+            self.time_mlp_in = nn.Linear(expert.width, expert.width, **factory)
+            self.time_mlp_out = nn.Linear(expert.width, expert.width, **factory)
+        else:
+            self.state_proj = nn.Linear(config.action_dim, expert.width, **factory)
+            self.action_time_mlp_in = nn.Linear(2 * expert.width, expert.width, **factory)
+            self.action_time_mlp_out = nn.Linear(expert.width, expert.width, **factory)
 
     # -- structure ---------------------------------------------------------------------
 
@@ -206,40 +254,9 @@ class Pi0(nn.Module):
     def device(self) -> torch.device:
         return self.action_in_proj.weight.device
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "Pi0":
-        """Draw every parameter from ``generator`` (on the parameters' device).
-
-        Matrices ~ N(0, 1/fan_in); embeddings ~ N(0, 1/width); biases ~ N(0, 0.02²);
-        LayerNorm scales ~ 1 + N(0, 0.1²) and RMSNorm ``w`` ~ N(0, 0.1²) (applied as
-        1+w). The leaves that the JAX init zeroes (adaRMS ``dense``, the SigLIP
-        head) are drawn like the others, so the action expert's gates are open
-        and image tokens reach the actions. LoRA factors ~ N(0, init_stddev²),
-        both of them (as the JAX init), drawn after everything else.
-        """
-
-        def normal(t, std):
-            t.normal_(0.0, std, generator=generator)
-
-        for module in self.modules():
-            if isinstance(module, (nn.Linear, nn.Conv2d)):
-                normal(module.weight, 1.0 / math.sqrt(module.weight[0].numel()))
-                if module.bias is not None:
-                    normal(module.bias, 0.02)
-            elif isinstance(module, nn.Embedding):
-                normal(module.weight, 1.0 / math.sqrt(module.weight.shape[1]))
-            elif isinstance(module, nn.LayerNorm):
-                normal(module.weight, 0.1)
-                module.weight.add_(1.0)
-                normal(module.bias, 0.02)
-            elif isinstance(module, _gemma.RMSNorm):
-                normal(module.weight, 0.1)
-        for expert in self.experts:
-            for name, p in expert.named_parameters():
-                if "lora" in name:
-                    lora = expert.config.lora_attn if "self_attn" in name else expert.config.lora_ffn
-                    normal(p, lora.init_stddev)
-        return self
+        """Draw every parameter from ``generator`` (on the parameters' device): ``init_weights``."""
+        return init_weights(self, self.experts, generator)
 
     # -- embedding ---------------------------------------------------------------------
 
@@ -271,15 +288,30 @@ class Pi0(nn.Module):
         return tokens, torch.cat(input_mask, dim=1), torch.zeros(tokens.shape[1], dtype=torch.bool, device=images.device)
 
     def embed_suffix(self, obs: _model.Observation, noisy_actions: torch.Tensor, timestep: torch.Tensor):
-        """Noisy actions + time (π₀.₅) -> (tokens [B, H, D1], input_mask, ar_mask, adarms_cond)."""
+        """(π₀: the state token, then) noisy actions + time -> (tokens [B, S, D1], input_mask, ar_mask, adarms_cond).
+
+        π₀.₅: S = H and adarms_cond is the time MLP's output. π₀ (``pi0.py:221-260``):
+        S = H + 1, the state token first; each action token is concatenated with
+        the time embedding and mixed by the action-time MLP; adarms_cond is None.
+        The state token and the first action token each start a block, so the
+        prefix sees neither and the state does not see the actions.
+        """
         action_tokens = _linear(noisy_actions, self.action_in_proj)
-        time_emb = posemb_sincos(timestep, self.config.action_expert_config.width, min_period=4e-3, max_period=4.0)
-        time_emb = F.silu(_linear(time_emb, self.time_mlp_in))
-        time_emb = F.silu(_linear(time_emb, self.time_mlp_out))
-        horizon = self.config.action_horizon
-        input_mask = torch.ones(action_tokens.shape[:2], dtype=torch.bool, device=action_tokens.device)
-        ar_mask = torch.arange(horizon, device=action_tokens.device) == 0  # [True, False, ...]: made on the device
-        return action_tokens, input_mask, ar_mask, time_emb
+        width = self.config.action_expert_config.width
+        time_emb = posemb_sincos(timestep, width, min_period=4e-3, max_period=4.0)
+        if self.config.pi05:
+            time_emb = F.silu(_linear(time_emb, self.time_mlp_in))
+            tokens, adarms_cond = action_tokens, F.silu(_linear(time_emb, self.time_mlp_out))
+        else:
+            state_token = _linear(obs.state, self.state_proj)[:, None, :]
+            time_tokens = time_emb[:, None, :].expand(-1, self.config.action_horizon, width)
+            action_time = F.silu(_linear(torch.cat([action_tokens, time_tokens], dim=-1), self.action_time_mlp_in))
+            tokens = torch.cat([state_token, _linear(action_time, self.action_time_mlp_out)], dim=1)
+            adarms_cond = None
+        input_mask = torch.ones(tokens.shape[:2], dtype=torch.bool, device=tokens.device)
+        # [True, False, ...] (π₀.₅) or [True, True, False, ...] (π₀), made on the device for a CUDA graph.
+        ar_mask = torch.arange(tokens.shape[1], device=tokens.device) <= tokens.shape[1] - self.config.action_horizon
+        return tokens, input_mask, ar_mask, adarms_cond
 
     # -- training ----------------------------------------------------------------------
 

@@ -1,4 +1,4 @@
-"""Policy runtime: transform chains around the π₀.₅ sampler.
+"""Policy runtime: transform chains around the sampler of π₀, π₀.₅ or π₀-FAST.
 
 Counterpart of ``kai0_tpu/policies/policy.py``: ``infer`` copies the
 observation, applies the input transforms on the host, trims the prompt's
@@ -9,9 +9,16 @@ numpy, applies the output transforms and reports ``policy_timing``
 transforms; ``stage_ms``: host → device staging, with any wait for another
 thread's request).
 
-On CUDA the sampler always runs as a captured CUDA graph (``graphs.py``), one
-per shape of the staged inputs: a bucket's graph is captured on the first
-request that needs it, or by ``warmup``. A graph's buffers serve one request
+On CUDA the flow sampler (π₀, π₀.₅ and their RTC variants) always runs as a
+captured CUDA graph (``graphs.py``), one per shape of the staged inputs: a
+bucket's graph is captured on the first request that needs it, or by
+``warmup``. π₀-FAST's sampler is chosen eager by its model type: its decode
+loop ends when every row has emitted EOS, which the host reads each step, so
+there is no one graph of it to capture. Prompt buckets apply to the flow
+models only (a FAST prompt carries ``token_ar_mask``), as in JAX.
+``sample_kwargs`` go to every eager sampler call (``max_decoding_steps``,
+``temperature``); the graphs run ``graphs.NUM_STEPS`` Euler steps and take
+none. A graph's buffers serve one request
 at a time: a lock serializes capture, staging, replay and fetch, so requests
 from several threads (the server's executor) each get their own actions; the
 host transforms run outside it. Tensors on the CPU run
@@ -73,10 +80,16 @@ class Policy:
         output_transforms: Sequence[Transform] = (),
         metadata: dict[str, Any] | None = None,
         prompt_buckets: Sequence[int] | None = None,
+        sample_kwargs: dict[str, Any] | None = None,
     ):
         self._model = model
         self._config = config
         self._device = torch.device(device)
+        self._graphed = self._device.type == "cuda" and config.model_type != _model.ModelType.PI0_FAST
+        self._sample_kwargs = dict(sample_kwargs or {})
+        if self._graphed and self._sample_kwargs:
+            raise ValueError(f"sample_kwargs {sorted(self._sample_kwargs)}: the graphed sampler takes none "
+                             f"(it runs {_graphs.NUM_STEPS} Euler steps)")
         self._generator = generator
         self._input_transform = _transforms.compose(transforms)
         self._output_transform = _transforms.compose(output_transforms)
@@ -134,7 +147,7 @@ class Policy:
     def _sample(self, inputs: dict, noise: np.ndarray | None, rtc: dict) -> tuple[float, np.ndarray]:
         """Sample batched staged ``inputs`` (a graph replay on CUDA, eagerly on the CPU); returns the model call's start
         time (after staging) and the actions [B, H, D]. ``rtc``: the request's RTC keys."""
-        if self._device.type == "cuda":
+        if self._graphed:
             guidance = chunk_key = None  # a guided request stages its chunk and its (delay, horizon)
             if rtc.get("prev_action_chunk") is not None:
                 chunk, provided_dim, scalars = _pi0_rtc.rtc_inputs(
@@ -153,10 +166,14 @@ class Policy:
                 return start_time, graph.fetch()
         batched = _map_structure(lambda x: torch.from_numpy(np.array(x)).to(self._device), inputs)
         observation = _model.Observation.from_dict(batched)
+        if self._device.type == "cuda":
+            torch.cuda.current_stream(self._device).synchronize()  # staging is not model time
         start_time = time.monotonic()
-        if noise is not None:
-            noise = torch.from_numpy(np.ascontiguousarray(noise)).to(self._device)
-        return start_time, self._model.sample_actions(observation, noise=noise, generator=self._generator, **rtc).numpy()
+        kwargs = {**self._sample_kwargs, **rtc}
+        if noise is not None:  # a FAST model takes none and raises, as JAX's sample_actions does
+            kwargs["noise"] = torch.from_numpy(np.ascontiguousarray(noise)).to(self._device)
+        actions = self._model.sample_actions(observation, generator=self._generator, **kwargs)
+        return start_time, actions.cpu().numpy()
 
     def infer(self, obs: dict, *, noise: np.ndarray | None = None) -> dict:
         t_start = time.monotonic()
@@ -231,9 +248,9 @@ class Policy:
     def warmup(self, example: dict | None = None) -> float:
         """Capture the sampler at batch 1 for every prompt bucket and the full prompt length (from the model config's
         ``fake_obs``), an RTC model's also guided by a chunk of ``action_horizon`` rows, then serve ``example``
-        through the whole chain; returns the seconds taken. Captures nothing on the CPU."""
+        through the whole chain; returns the seconds taken. Captures nothing on the CPU or for a FAST model."""
         start = time.monotonic()
-        if self._device.type == "cuda":
+        if self._graphed:
             fake = self._config.fake_obs(1)
             full = fake["tokenized_prompt"].shape[-1]
             chunks = [None]

@@ -1,17 +1,19 @@
 """Assemble a trained Policy from a checkpoint.
 
 Counterpart of ``kai0_tpu/policies/policy_config.py:28-151``: reads the
-checkpoint's ``model.safetensors`` (the ``PI0Pytorch`` key layout) into a
-π₀.₅ with bf16 parameters, optionally quantizes its Gemma matmul weights to
-int8 (``ops/quant.quantize_inference_tree``), loads the norm stats from the
+checkpoint's ``model.safetensors`` (the ``PI0Pytorch`` key layout; π₀-FAST's
+is its PaliGemma half) into the config's model with bf16 parameters (π₀ or
+π₀.₅ ``Pi0``, ``Pi0RTC`` for an RTC config, ``Pi0FAST``), optionally
+quantizes its Gemma matmul weights to int8
+(``ops/quant.quantize_inference_tree``), loads the norm stats from the
 checkpoint's ``assets/<asset_id>`` (so serving uses the stats training used),
 and builds the transform chains
 
     inputs : repack → InjectDefaultPrompt → data-in → Normalize → model-in
     outputs: model-out → Unnormalize → data-out → repack-out
 
-An RTC config (``pi05_rtc_flatten_fold_inference``) gets the RTC model
-(``models/pi0_rtc.Pi0RTC``); ``max_batch`` > 1 wraps the policy in
+``sample_kwargs`` go to every sampler call (a FAST config's
+``max_decoding_steps``, ``temperature``); ``max_batch`` > 1 wraps the policy in
 ``serving/batching.BatchingPolicy``. An Orbax ``params/`` checkpoint is read
 only by the JAX package. Serving sharded over several cards waits for its
 slice.
@@ -30,16 +32,14 @@ import torch
 from kai0_tpu_torch import interop as _interop
 from kai0_tpu_torch import transforms as _transforms
 from kai0_tpu_torch.models import model as _model
-from kai0_tpu_torch.models import pi0 as _pi0
-from kai0_tpu_torch.models import pi0_rtc as _pi0_rtc
 from kai0_tpu_torch.ops import quant as _quant
 from kai0_tpu_torch.policies import policy as _policy
 
 logger = logging.getLogger("kai0_tpu_torch")
 
 
-def _load_model(model_config, checkpoint_dir: pathlib.Path, params: Mapping | None, device) -> _pi0.Pi0:
-    model_cls = _pi0_rtc.Pi0RTC if model_config.model_type == _model.ModelType.PI05_RTC else _pi0.Pi0
+def _load_model(model_config, checkpoint_dir: pathlib.Path, params: Mapping | None, device):
+    model_cls = _model.model_class(model_config)
     if params is not None:
         state = {k: v if isinstance(v, torch.Tensor) else _interop._to_tensor(np.asarray(v)) for k, v in params.items()}
         dtype = next(v.dtype for v in state.values() if v.is_floating_point())
@@ -68,6 +68,7 @@ def create_trained_policy(
     warmup: bool = False,
     quantize: bool = False,
     prompt_buckets: list[int] | None = None,
+    sample_kwargs: dict[str, Any] | None = None,
     fsdp_devices: int = 1,
     max_batch: int = 1,
     batch_wait_ms: float = 0.0,
@@ -120,6 +121,7 @@ def create_trained_policy(
         ],
         metadata=train_config.policy_metadata,
         prompt_buckets=prompt_buckets,
+        sample_kwargs=sample_kwargs,
     )
     if max_batch > 1:
         from kai0_tpu_torch.serving import batching as _batching
@@ -141,10 +143,14 @@ def _warmup_example(train_config) -> dict | None:
         return agilex_policy.make_agilex_example()
     if isinstance(data, robot_configs.LeRobotAlohaDataConfig):
         return aloha_policy.make_aloha_example()
-    if isinstance(data, robot_configs.LeRobotDROIDDataConfig):
+    if isinstance(data, (robot_configs.LeRobotDROIDDataConfig, robot_configs.RLDSDroidDataConfig)):
         return droid_policy.make_droid_example()
     if isinstance(data, robot_configs.LeRobotLiberoDataConfig):
         return libero_policy.make_libero_example()
     if isinstance(data, _config.FakeDataConfig):
         return None
+    if isinstance(data, _config.SimpleDataConfig) and any(
+        isinstance(t, droid_policy.DroidInputs) for t in data.data_transforms(train_config.model).inputs
+    ):
+        return droid_policy.make_droid_example()  # the RoboArena baselines
     return agilex_policy.make_agilex_example()

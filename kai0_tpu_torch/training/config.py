@@ -3,17 +3,18 @@
 Counterpart of ``kai0_tpu/training/config.py``: frozen-dataclass configs
 (``AssetsConfig``, ``DataConfig``, the ``DataConfigFactory`` classes that
 assemble the transform chain and load norm stats at run time), the per-model
-``ModelTransformFactory`` (π₀.₅ and π₀.₅-RTC), ``TrainConfig`` and ``get_config`` over
-the named configs (``robot_configs.py``) with its did-you-mean message.
+``ModelTransformFactory`` (π₀, π₀.₅, their RTC variants and π₀-FAST),
+``TrainConfig`` and ``get_config`` over the named configs (the ``debug*`` and
+``*_base`` ones here, the robot ones in ``robot_configs.py``) with its
+did-you-mean message.
 
 ``TrainConfig`` carries the fields serving reads (``name``, ``model``,
 ``data``, ``assets_base_dir``, ``exp_name``, ``policy_metadata``,
 ``assets_dirs``), those the train step reads (``train_lib.train_step``) and
 those of the training loop (``train_lib.main``: seed, batch, workers, steps,
 intervals, checkpoint directory and retention, resume, weight loader,
-profiling), with JAX's defaults. A named config whose model or data path the
-port does not have yet raises from ``get_config`` with the ROADMAP item that
-ports it.
+profiling), with JAX's defaults. A named config whose data path the port does
+not have yet raises from ``get_config`` with the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -37,14 +38,6 @@ from kai0_tpu_torch.training import weight_loaders
 logger = logging.getLogger("kai0_tpu_torch")
 
 ModelType = _model.ModelType
-
-# Model types the port does not serve yet, with the ROADMAP (Queue 1) item that ports them.
-_PENDING_MODEL_TYPES = {
-    ModelType.PI0: "the π₀ model (ROADMAP Queue 1 item 6)",
-    ModelType.PI0_RTC: "the π₀ model (ROADMAP Queue 1 item 6)",
-    ModelType.PI0_FAST: "FAST (ROADMAP Queue 1 item 8)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class AssetsConfig:
@@ -99,12 +92,43 @@ class GroupFactory(Protocol):
 
 @dataclasses.dataclass(frozen=True)
 class ModelTransformFactory(GroupFactory):
-    """The per-ModelType model transforms (``kai0_tpu/training/config.py:96-149``): π₀.₅ and π₀.₅-RTC."""
+    """The per-ModelType model transforms (``kai0_tpu/training/config.py:104-149``).
+
+    π₀ tokenizes the prompt alone (its state is a token of the suffix); π₀.₅
+    puts the discretized state in the prompt when ``discrete_state_input``;
+    π₀-FAST tokenizes prompt, state and actions with ``FASTTokenizer`` and
+    decodes the sampled tokens back into actions on the way out. FAST always
+    gets ``FASTTokenizer(max_token_len)``: ``fast_model_tokenizer`` and its
+    kwargs are not read, as in the JAX package (ROADMAP Queue 3).
+    """
 
     default_prompt: str | None = None
 
     def __call__(self, model_config) -> _transforms.Group:
         mt = model_config.model_type
+        if mt in (ModelType.PI0, ModelType.PI0_RTC):
+            return _transforms.Group(
+                inputs=[
+                    _transforms.InjectDefaultPrompt(self.default_prompt),
+                    _transforms.ResizeImages(224, 224),
+                    _transforms.TokenizePrompt(_tokenizer.PaligemmaTokenizer(model_config.max_token_len)),
+                    _transforms.PadStatesAndActions(model_config.action_dim),
+                ],
+            )
+        if mt == ModelType.PI0_FAST:
+            tokenizer = _tokenizer.FASTTokenizer(model_config.max_token_len)
+            return _transforms.Group(
+                inputs=[
+                    _transforms.InjectDefaultPrompt(self.default_prompt),
+                    _transforms.ResizeImages(224, 224),
+                    _transforms.TokenizeFASTInputs(tokenizer),
+                ],
+                outputs=[
+                    _transforms.ExtractFASTActions(
+                        tokenizer, action_horizon=model_config.action_horizon, action_dim=model_config.action_dim
+                    )
+                ],
+            )
         if mt in (ModelType.PI05, ModelType.PI05_RTC):
             return _transforms.Group(
                 inputs=[
@@ -117,8 +141,6 @@ class ModelTransformFactory(GroupFactory):
                     _transforms.PadStatesAndActions(model_config.action_dim),
                 ],
             )
-        if mt in _PENDING_MODEL_TYPES:
-            raise NotImplementedError(f"model type {mt.value}: the port has no {_PENDING_MODEL_TYPES[mt]} yet")
         raise ValueError(f"Unsupported model type {mt}")
 
 
@@ -162,6 +184,21 @@ class FakeDataConfig(DataConfigFactory):
 
     def create(self, assets_dirs: pathlib.Path, model_config) -> DataConfig:
         return dataclasses.replace(self.base_config or DataConfig(), repo_id=self.repo_id)
+
+
+@dataclasses.dataclass(frozen=True)
+class SimpleDataConfig(DataConfigFactory):
+    """Data transforms from a factory of the model config, and the model's own transforms (``config.py:194-205``)."""
+
+    data_transforms: GroupFactory = dataclasses.field(default_factory=lambda: (lambda mc: _transforms.Group()))
+    model_transforms: GroupFactory = dataclasses.field(default_factory=ModelTransformFactory)
+
+    def create(self, assets_dirs: pathlib.Path, model_config) -> DataConfig:
+        return dataclasses.replace(
+            self.create_base_config(assets_dirs, model_config),
+            data_transforms=self.data_transforms(model_config),
+            model_transforms=self.model_transforms(model_config),
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,28 +265,58 @@ class TrainConfig:
             raise ValueError("Cannot resume and overwrite at the same time.")
 
 
+def _agilex_transforms(model_config) -> _transforms.Group:
+    from kai0_tpu_torch.policies import agilex_policy
+
+    return _transforms.Group(
+        inputs=[agilex_policy.AgilexInputs(action_dim=model_config.action_dim, model_type=model_config.model_type)],
+        outputs=[agilex_policy.AgilexOutputs()],
+    )
+
+
 def _configs() -> list[TrainConfig]:
     from kai0_tpu_torch.training import robot_configs
 
-    # JAX's debug model is a π₀ config replaced to pi05=True: it keeps π₀'s 48 prompt tokens and continuous state.
+    # JAX's debug model is π₀ at dummy size; debug_pi05 replaces it to pi05=True, keeping π₀'s 48 prompt tokens
+    # and continuous state.
     debug_model = pi0_config.Pi0Config(
-        paligemma_variant="dummy", action_expert_variant="dummy", vision_variant="mu/14", dtype="float32", pi05=True,
-        max_token_len=48, discrete_state_input=False,
+        paligemma_variant="dummy", action_expert_variant="dummy", vision_variant="mu/14", dtype="float32"
     )
+    debug_pi05 = dataclasses.replace(debug_model, pi05=True)
     # The debug loop of the JAX configs: 4 steps of batch 2, a save at steps 2 and 3, a log every step.
     debug_loop = dict(batch_size=2, num_train_steps=4, save_interval=2, keep_period=2, log_interval=1, num_workers=0,
                       wandb_enabled=False)
     return [
-        TrainConfig(name="debug_pi05", model=debug_model, data=FakeDataConfig(), **debug_loop),
+        TrainConfig(name="debug", model=debug_model, data=FakeDataConfig(), ema_decay=None, **debug_loop),
+        # Restores the `debug` run's last checkpoint (step 3) through the weight loader; the port's checkpoints are
+        # <step>/model.safetensors where JAX's are <step>/params.
+        TrainConfig(
+            name="debug_restore",
+            model=debug_model,
+            data=FakeDataConfig(),
+            ema_decay=None,
+            weight_loader=weight_loaders.CheckpointWeightLoader("./checkpoints/debug/debug/3/model.safetensors"),
+            **debug_loop,
+        ),
+        TrainConfig(name="debug_pi05", model=debug_pi05, data=FakeDataConfig(), **debug_loop),
         TrainConfig(
             name="debug_lora",
             model=dataclasses.replace(
-                debug_model, paligemma_variant="dummy_lora", action_expert_variant="dummy_lora", dtype="bfloat16"
+                debug_pi05, paligemma_variant="dummy_lora", action_expert_variant="dummy_lora", dtype="bfloat16"
             ),
             data=FakeDataConfig(),
             ema_decay=None,
             **debug_loop,
         ),
+        # Serving smoke config: the debug model behind the Agilex robot transforms (tokenize/resize/pad).
+        TrainConfig(
+            name="debug_serve",
+            model=debug_model,
+            data=SimpleDataConfig(repo_id="fake", data_transforms=_agilex_transforms),
+            ema_decay=None,
+            **{**debug_loop, "keep_period": 5000},
+        ),
+        TrainConfig(name="pi0_base", model=pi0_config.Pi0Config(), data=FakeDataConfig()),
         TrainConfig(name="pi05_base", model=pi0_config.Pi0Config(pi05=True), data=FakeDataConfig()),
         *robot_configs.configs(),
     ]

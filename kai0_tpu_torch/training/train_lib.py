@@ -1,5 +1,5 @@
-"""Train-state init, the train step and the training loop of the π₀.₅ fine-tunes (full, and LoRA over a frozen base)
-and of the advantage estimator.
+"""Train-state init, the train step and the training loop of the π₀, π₀.₅ and π₀-FAST fine-tunes (full, and LoRA over
+a frozen base) and of the advantage estimator.
 
 Counterpart of ``kai0_tpu/training/train_lib.py``: ``init_train_state``
 copies in the weight loader's weights (unless the run resumes, when the
@@ -30,6 +30,7 @@ import time
 
 import torch
 
+from kai0_tpu_torch.models import model as _model
 from kai0_tpu_torch.ops import quant as _quant
 from kai0_tpu_torch.training import optimizer as _optimizer
 from kai0_tpu_torch.training.config import TrainConfig
@@ -160,14 +161,10 @@ def param_norm(model: torch.nn.Module) -> torch.Tensor:
 
 
 def create_model(config: TrainConfig, *, device="cuda") -> torch.nn.Module:
-    """The config's model on ``device`` in ``param_dtype`` (f32 without one), drawn from ``config.seed``: π₀.₅, or
-    the advantage estimator (π₀.₅ with its value head) for an ``AdvantageEstimatorConfig``."""
-    from kai0_tpu_torch.models import advantage as _advantage
-    from kai0_tpu_torch.models import pi0 as _pi0
-
+    """The config's model (``model.model_class``) on ``device`` in ``param_dtype`` (f32 without one), drawn from
+    ``config.seed``."""
     dtype = torch.float32 if config.param_dtype is None else getattr(torch, config.param_dtype)
-    cls = _advantage.AdvantageEstimator if isinstance(config.model, _advantage.AdvantageEstimatorConfig) else _pi0.Pi0
-    model = cls(config.model, device=device, param_dtype=dtype)
+    model = _model.model_class(config.model)(config.model, device=device, param_dtype=dtype)
     return model.init_weights(torch.Generator(device=device).manual_seed(config.seed))
 
 

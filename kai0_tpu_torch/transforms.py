@@ -2,9 +2,9 @@
 
 Counterpart of ``kai0_tpu/transforms.py`` (the '/'-path dict toolkit, the
 transform protocol, prompts, normalization with and without quantiles,
-delta/absolute actions, prompt tokenization, resize and pad), on unbatched
-nested dicts of numpy arrays. The FAST transforms (``TokenizeFASTInputs``,
-``ExtractFASTActions``) wait for the FAST model. ``ResizeImages`` resizes with
+delta/absolute actions, prompt tokenization and π₀-FAST's
+``TokenizeFASTInputs`` / ``ExtractFASTActions``, resize and pad), on unbatched
+nested dicts of numpy arrays. ``ResizeImages`` resizes with
 ``shared/image_tools.resize_with_pad_np``, OpenCV's ``INTER_LINEAR`` written
 without OpenCV.
 """
@@ -365,6 +365,41 @@ class TokenizePrompt(DataTransformFn):
                 raise ValueError("State is required.")
         tokens, masks = self.tokenizer.tokenize(_as_str(prompt), state)
         return {**data, "tokenized_prompt": tokens, "tokenized_prompt_mask": masks}
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenizeFASTInputs(DataTransformFn):
+    tokenizer: object  # FASTTokenizer protocol: .tokenize(prompt, state, actions|None) -> 4 arrays
+
+    def __call__(self, data: DataDict) -> DataDict:
+        prompt = data.pop("prompt", None)
+        if prompt is None:
+            raise ValueError("Prompt is required")
+        tokens, token_mask, ar_mask, loss_mask = self.tokenizer.tokenize(
+            _as_str(prompt), data["state"], data.get("actions")
+        )
+        return {
+            **data,
+            "tokenized_prompt": tokens,
+            "tokenized_prompt_mask": token_mask,
+            "token_ar_mask": ar_mask,
+            "token_loss_mask": loss_mask,
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class ExtractFASTActions(DataTransformFn):
+    tokenizer: object
+    action_horizon: int
+    action_dim: int
+
+    def __call__(self, data: DataDict) -> DataDict:
+        if "actions" not in data:
+            return data
+        # For FAST models the "actions" leaving the model are tokens to decode.
+        tokens = np.asarray(data.pop("actions")).astype(np.int32)
+        decoded = self.tokenizer.extract_actions(tokens, self.action_horizon, self.action_dim)
+        return {**data, "actions": decoded}
 
 
 # --------------------------------------------------------------------------------------

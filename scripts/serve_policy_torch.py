@@ -1,4 +1,4 @@
-"""Serve a trained π₀.₅ policy over websocket with the PyTorch port on a CUDA card.
+"""Serve a trained π₀, π₀.₅ or π₀-FAST policy (the config's model) over websocket with the PyTorch port on a CUDA card.
 
 The arguments of ``scripts/serve_policy.py``:
 

@@ -1,4 +1,4 @@
-"""Train π₀.₅ with the PyTorch port on a CUDA card.
+"""Train π₀, π₀.₅ or π₀-FAST (the config's model) with the PyTorch port on a CUDA card.
 
 The command line of ``scripts/train.py``:
 
@@ -6,7 +6,7 @@ The command line of ``scripts/train.py``:
 
 e.g. ``pi05_flatten_fold_normal --exp_name=run1 --weight_loader.params_path=<dir>/model.safetensors``
 or ``pi05_base --exp_name=smoke --batch_size=32 --param_dtype=bfloat16 --optimizer.state_dtype=int8
---ema_decay=none``. Checkpoints go to ``<checkpoint_base_dir>/<config>/<exp_name>/<step>/``
+--ema_decay=none`` (``pi0_base`` or ``pi0_fast_libero`` for the other families). Checkpoints go to ``<checkpoint_base_dir>/<config>/<exp_name>/<step>/``
 (``kai0_tpu_torch/training/checkpoints.py`` has the layout); ``--resume``
 continues the newest step, ``--overwrite`` starts over. ``--device=cpu``
 (this script's own flag) trains on the host's CPU, slowly, for tests; there

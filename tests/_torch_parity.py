@@ -46,6 +46,21 @@ def perturb_zero_leaves(params: dict, seed: int, std: float = 0.05) -> dict:
     return unflatten_dict(flat)
 
 
+def numpy_params(config, seed: int) -> dict:
+    """Every leaf of ``config.init_params``'s tree drawn from ``np.random.default_rng(seed)`` (JAX's eager init
+    takes seconds on the CPU): matrices and embeddings ~ N(0, 0.05²), biases ~ N(0, 0.02²), SigLIP's LayerNorm
+    scales ~ 1 + N(0, 0.1²) and Gemma's RMSNorm scales (applied as 1 + w) ~ N(0, 0.1²)."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for path, leaf in flatten_dict(jax.eval_shape(config.init_params, jax.random.key(0))).items():
+        if path.endswith("scale"):
+            value = (1.0 if path.startswith("PaliGemma/img") else 0.0) + 0.1 * rng.standard_normal(leaf.shape)
+        else:
+            value = (0.02 if path.endswith("bias") else 0.05) * rng.standard_normal(leaf.shape)
+        flat[path] = value.astype(leaf.dtype)
+    return unflatten_dict(flat)
+
+
 def sub_state(state: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
 

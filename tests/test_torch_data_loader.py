@@ -205,3 +205,7 @@ def test_unported_data_paths_raise(dataset_root):
         rlds_data_dir="/nonexistent")))
     with pytest.raises(NotImplementedError, match="item 4"):
         data_loader.create_data_loader(rlds, device="cpu")
+    # A named config on the RLDS factory (served by the port) still raises in the loader.
+    polaris = torch_config.get_config("pi0_droid_jointpos_polaris")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        data_loader.create_data_loader(polaris, device="cpu")

@@ -73,5 +73,9 @@ def test_key_layout_matches_the_reference_names():
 
 
 def test_only_pi05_is_ported():
-    with pytest.raises(NotImplementedError, match="pi05"):
-        torch_pi0.Pi0(torch_pi0.Pi0Config(**{**DEBUG, "pi05": False}), device="cpu")
+    # π₀ is ported too now: each model has its own suffix leaves and no other's.
+    pi0 = {k for k, _ in torch_pi0.Pi0(torch_pi0.Pi0Config(**{**DEBUG, "pi05": False}), device="cpu").named_parameters()}
+    pi05 = {k for k, _ in torch_pi0.Pi0(torch_pi0.Pi0Config(**DEBUG), device="cpu").named_parameters()}
+    heads = {f"{h}.{p}" for h in ("state_proj", "action_time_mlp_in", "action_time_mlp_out") for p in ("weight", "bias")}
+    time_mlp = {f"{h}.{p}" for h in ("time_mlp_in", "time_mlp_out") for p in ("weight", "bias")}
+    assert heads <= pi0 and not time_mlp & pi0 and time_mlp <= pi05 and not heads & pi05

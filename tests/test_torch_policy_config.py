@@ -14,24 +14,32 @@ beside quantile norm stats under ``assets/<asset_id>``. Then:
   with the same noise: actions within 1e-3 (BASELINE.md:27), and within 5e-3
   with ``quantize=True`` (activation codes flip on f32 rounding, the bound of
   ``test_torch_policy.py::test_int8_infer_matches_jax_quantized_policy``);
-- the named configs: every config of the JAX registry is served by the port
-  or raises with the ROADMAP item that ports it.
+- π₀ (``pi05=False``, numpy-seeded weights): ``create_trained_policy`` of
+  both packages, ``pi0_libero`` with its model replaced by the dummy π₀, on a
+  raw LIBERO observation with z-score stats: actions within 1e-3; the port's
+  writer round-trips through JAX's reader bit for bit;
+- the named configs: every config of the JAX registry is served by the port,
+  with JAX's model type and transform chain, or raises with the ROADMAP item
+  that ports it (the two π₀.₅ RLDS configs).
 """
 
 import dataclasses
+import sys
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import DEBUG, debug_models
+from _torch_parity import DEBUG, debug_models, numpy_params
 from kai0_tpu import interop as jax_interop
 from kai0_tpu.models import pi0 as jax_pi0
 from kai0_tpu.policies import agilex_policy as jax_agilex
+from kai0_tpu.policies import libero_policy as jax_libero
 from kai0_tpu.policies import policy_config as jax_policy_config
 from kai0_tpu.shared import normalize as jax_normalize
 from kai0_tpu.training import config as jax_config_module
+from kai0_tpu.transforms import flatten_dict
 from kai0_tpu_torch import interop
 from kai0_tpu_torch.models import pi0 as torch_pi0
 from kai0_tpu_torch.policies import policy_config
@@ -102,8 +110,6 @@ def test_writer_round_trips_through_jax_reader(checkpoint, tmp_path):
     path = interop.save_torch_checkpoint(model, tmp_path)
     assert path.name == "model.safetensors" and interop.is_torch_checkpoint(tmp_path)
     back = jax_interop.load_torch_checkpoint(tmp_path, model_config)
-    from kai0_tpu.transforms import flatten_dict
-
     flat, ref = flatten_dict(back), flatten_dict(params)
     assert set(flat) == set(ref)
     for key in ref:
@@ -141,14 +147,51 @@ def test_buckets_leave_the_actions_and_warmup_captures_nothing_on_the_cpu(checkp
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
 
 
-def test_every_named_config_is_served_or_names_its_roadmap_item():
+PI0 = dict(DEBUG, pi05=False)
+PI0_HEADS = ("state_proj", "action_time_mlp_in", "action_time_mlp_out")
+
+
+def test_create_trained_policy_on_libero_matches_jax_and_the_writer_round_trips(tmp_path):
+    jax_config = jax_pi0.Pi0Config(**PI0)
+    params = numpy_params(jax_config, seed=0)
+    jax_interop.save_torch_checkpoint(params, jax_config, tmp_path)
+    rng = np.random.default_rng(3)
+    stat = lambda: jax_normalize.NormStats(mean=rng.uniform(-0.5, 0.5, 32), std=rng.uniform(0.5, 2, 32))  # noqa: E731
+    jax_normalize.save(tmp_path / "assets" / "physical-intelligence" / "libero", {"state": stat(), "actions": stat()})
+    jax_cfg = dataclasses.replace(jax_config_module.get_config("pi0_libero"), model=jax_config)
+    torch_cfg = dataclasses.replace(torch_config_module.get_config("pi0_libero"), model=torch_pi0.Pi0Config(**PI0))
+    np.random.seed(11)
+    obs = jax_libero.make_libero_example()
+    noise = np.random.default_rng(4).standard_normal((50, 32)).astype(np.float32)
+    ref = jax_policy_config.create_trained_policy(jax_cfg, tmp_path).infer(obs, noise=noise)["actions"]
+    out = policy_config.create_trained_policy(torch_cfg, tmp_path, device="cpu").infer(obs, noise=noise)["actions"]
+    err = float(np.abs(out - np.asarray(ref)).max())
+    print(f"pi0_libero through create_trained_policy: max abs difference {err:.3e}")
+    assert out.shape == np.asarray(ref).shape == (50, 7) and err <= 1e-3, err
+
+    model = torch_pi0.Pi0(torch_pi0.Pi0Config(**PI0), device="cpu")
+    interop.load_jax_state(model, interop.state_from_jax({k: np.asarray(v) for k, v in flatten_dict(params).items()},
+                                                         model))
+    interop.save_torch_checkpoint(model, tmp_path / "port")
+    back = flatten_dict(jax_interop.load_torch_checkpoint(tmp_path / "port", jax_config))
+    flat = flatten_dict(params)
+    assert set(back) == set(flat) and {f"{h}/kernel" for h in PI0_HEADS} <= set(flat)
+    for key, value in flat.items():
+        np.testing.assert_array_equal(np.asarray(back[key]), np.asarray(value), err_msg=key)
+
+
+def test_every_named_config_is_served_or_names_its_roadmap_item(monkeypatch):
+    # The FAST configs build a FASTTokenizer in both packages: without transformers neither asks the hub for its
+    # processor (the JAX package's from_pretrained(local_files_only=True) still queries it for optional files).
+    monkeypatch.setitem(sys.modules, "transformers", None)
     for name in jax_config_module.registry():
         try:
             cfg = torch_config_module.get_config(name)
         except NotImplementedError as e:
             assert "ROADMAP Queue 1 item" in str(e), (name, e)
             continue
-        assert cfg.name == name and cfg.model.pi05
+        jax_model_type = jax_config_module.get_config(name).model.model_type
+        assert cfg.name == name and cfg.model.model_type.value == jax_model_type.value, name
         data = cfg.data.create(cfg.assets_dirs, cfg.model)
         jax_cfg = jax_config_module.get_config(name)
         if jax_cfg.data.assets.assets_dir is None:  # a local assets path: JAX builds its chain offline too
@@ -160,8 +203,9 @@ def test_every_named_config_is_served_or_names_its_roadmap_item():
             assert (data.asset_id, data.use_quantile_norm) == (ref.asset_id, ref.use_quantile_norm)
     assert {f"pi05_{t}_{k}" for t in ("flatten_fold", "tee_shirt_sort", "hang_cloth") for k in ("normal", "awbc")} <= set(
         torch_config_module.registry())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        torch_config_module.get_config("pi0_aloha")
+    assert {"debug", "debug_serve", "pi0_aloha", "pi0_fast_droid", "paligemma_vq_droid"} <= set(torch_config_module.registry())
+    with pytest.raises(NotImplementedError, match="item 4"):
+        torch_config_module.get_config("pi05_full_droid_finetune")
     with pytest.raises(ValueError, match="Did you mean"):
         torch_config_module.get_config("pi05_flaten_fold_normal")
 

@@ -149,8 +149,8 @@ def test_script_usage_did_you_mean_and_a_cpu_step(tmp_path):
             jax_cli.cli(jax_config.registry(), argv)
         assert out.stderr.splitlines()[0] == str(jax_ref.value).splitlines()[0]
     assert "Did you mean one of: ['pi05_flatten_fold_normal'" in out.stderr
-    out = _script("debug", "--exp_name=x")
-    assert out.returncode == 1 and "the π₀ model (ROADMAP Queue 1 item 6)" in out.stderr
+    out = _script("pi05_full_droid_finetune", "--exp_name=x")
+    assert out.returncode == 1 and "the RLDS data loader (ROADMAP Queue 1 item 4)" in out.stderr
 
     out = _script("debug_pi05", "--exp_name=s", f"--checkpoint_base_dir={tmp_path}", "--num_train_steps=1",
                   "--device=cpu", cwd=tmp_path)

@@ -22,6 +22,13 @@ SigLIP's key bias is left out: softmax cancels its gradient, so both packages
 normalise rounding noise. One step of the single-card bundle (bf16 parameters
 with stochastic rounding, int8 moments, no EMA) is checked for finite numbers,
 dtypes and shapes.
+
+π₀ (``pi05=False``: the state token and the action-time MLP; numpy-seeded
+weights carried across by ``interop.state_from_jax``): one step of both
+packages, without augmentation, on the same noise and time: loss and
+grad_norm within 1e-5 relative, the π₀ heads' change within 1e-5 x their
+largest change plus 4 f32 ulps (``test_torch_pi0_state.py`` holds its loss
+and every gradient).
 """
 
 import dataclasses
@@ -33,12 +40,16 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import DEBUG, debug_models, jax_augmented_observation, jax_loss_draws, model_inputs, to_torch
+from _torch_parity import (DEBUG, debug_models, jax_augmented_observation, jax_loss_draws, model_inputs,
+                           numpy_params, to_torch)
 from kai0_tpu.interop import torch_safetensors as tsf
+from kai0_tpu.models import model as jax_model
 from kai0_tpu.models import pi0 as jax_pi0
 from kai0_tpu.training import optimizer as jax_opt
 from kai0_tpu.training import train_lib as jax_train_lib
 from kai0_tpu.training import utils as jax_utils
+from kai0_tpu.transforms import flatten_dict
+from kai0_tpu_torch import interop
 from kai0_tpu_torch.models import model as torch_model
 from kai0_tpu_torch.models import pi0 as torch_pi0
 from kai0_tpu_torch.training import optimizer as opt
@@ -144,3 +155,67 @@ def test_one_step_of_the_single_card_bundle():
         mu, nu = state.opt_state["mu"][key], state.opt_state["nu"][key]
         assert mu["q"].dtype == torch.int8 and nu["q"].dtype == torch.uint8 and mu["q"].shape == shapes[key]
     assert all(state.opt_state["nu"][k]["s"].max() > 0 for k in ("action_in_proj.weight", "time_mlp_out.weight"))
+
+
+PI0 = dict(DEBUG, pi05=False)
+PI0_HEADS = ("state_proj", "action_time_mlp_in", "action_time_mlp_out")
+
+
+def _pi0_draws(rng, batch: int) -> dict:
+    """Noise and time as ``kai0_tpu.models.pi0.compute_loss`` draws them from ``rng``."""
+    _, noise_rng, time_rng = jax.random.split(rng, 3)
+    noise = jax.random.normal(noise_rng, (batch, 50, 32))
+    time = jax.random.beta(time_rng, 1.5, 1, (batch,)) * 0.999 + 0.001
+    return {"noise": to_torch(noise), "time": to_torch(time)}
+
+
+def test_one_pi0_train_step_matches_jax():
+    jax_config = jax_pi0.Pi0Config(**PI0)
+    params = numpy_params(jax_config, seed=0)
+    model = torch_pi0.Pi0(torch_pi0.Pi0Config(**PI0), device="cpu")
+    interop.load_jax_state(model, interop.state_from_jax({k: np.asarray(v) for k, v in flatten_dict(params).items()},
+                                                         model))
+    inputs = model_inputs(3, batch=BATCH)
+    actions = np.random.default_rng(4).standard_normal((BATCH, 50, 32)).astype(np.float32)
+    rng = jax.random.key(9)
+
+    # Both steps skip the augmentation (held to JAX by the π₀.₅ steps above; its eager JAX run costs ~9 s here).
+    @dataclasses.dataclass(frozen=True)
+    class Unaugmented:
+        def compute_loss(self, p, key, observation, acts, *, train):
+            return jax_pi0.compute_loss(p, jax_config, key, observation, acts, train=False)
+
+    @dataclasses.dataclass(frozen=True)
+    class JaxConfig:
+        model: Unaugmented = Unaugmented()
+        param_dtype: str | None = None
+        ema_decay: float | None = 0.99
+
+    class PortUnaugmented:
+        device = model.device
+
+        def compute_loss(self, observation, acts, *, train, **kwargs):
+            return model.compute_loss(observation, acts, train=False, **kwargs)
+
+    tx = jax_opt.create_optimizer(jax_opt.AdamW(), jax_opt.CosineDecaySchedule(**SCHEDULE))
+    mask = jax.tree.map(lambda _: True, params)
+    step_fn = jax.jit(functools.partial(jax_train_lib.train_step, JaxConfig(), tx, mask))
+    jax_state = jax_utils.TrainState(step=jnp.int32(0), params=params, opt_state=tx.init(params), ema_params=params)
+    jax_state, jax_info = step_fn(rng, jax_state, (jax_model.Observation.from_dict(inputs), actions))
+
+    config = train_lib.TrainConfig(lr_schedule=opt.CosineDecaySchedule(**SCHEDULE))
+    state = train_lib.init_train_state(model, config, device="cpu")
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    obs = torch_model.Observation.from_dict(to_torch(inputs))
+    state, info = train_lib.train_step(PortUnaugmented(), state, (obs, torch.from_numpy(actions)), config,
+                                       **_pi0_draws(jax.random.fold_in(rng, 0), BATCH))
+    for k in ("loss", "grad_norm"):
+        assert abs(float(info[k]) - float(jax_info[k])) <= 1e-5 * max(1.0, abs(float(jax_info[k]))), k
+    want = tsf.jax_to_torch_state(jax_state.params, jax_config)
+    for key in (f"{h}.{p}" for h in PI0_HEADS for p in ("weight", "bias")):
+        start = before[key].numpy().astype(np.float64)
+        ref = np.asarray(want[key], np.float64) - start
+        got = state.params[key].detach().numpy().astype(np.float64) - start
+        assert np.abs(ref).max() > 0, key
+        bound = 1e-5 * np.abs(ref).max() + 4 * np.finfo(np.float32).eps * np.abs(start).max()
+        assert np.abs(got - ref).max() <= bound, (key, np.abs(got - ref).max())
