@@ -204,7 +204,7 @@ Phases, none of which catches an error (any failure exits non-zero):
     actions, and the loaded tensors bit-equal to the checkpoint's. The
     checkpoints are deleted at the end.
 19. Stage Advantage through the port's entry points, at full width: (a) the
-    port's LeRobot writer writes a synthetic Agilex dataset (4 episodes x 400
+    port's LeRobot writer writes a synthetic Agilex dataset (2 episodes x 400
     frames, three 480x640 mp4 cameras, ``stage_progress_gt`` rising from 0 to
     1, one task); (b) a seeded bf16 estimator (π₀.₅ + value head) is written
     to ``model.safetensors`` (a π₀.₅ checkpoint has no value head, which the
@@ -248,7 +248,7 @@ Phases, none of which catches an error (any failure exits non-zero):
     sampler's; (c) π₀ at depth 2: f32 card against f32 host within 1e-3, the
     same weights in bf16 on the card within phase 5's bounds of the f32 host;
     (d) π₀-FAST serving: ``pi0_fast_droid``'s model (Gemma-2B, So400m/14,
-    8-dim actions over 10 steps, 250 prompt tokens), 5 raw DROID requests
+    8-dim actions over 10 steps, 250 prompt tokens), 2 raw DROID requests
     (two 180x320 cameras) through ``create_trained_policy`` and the eager
     greedy decoder: wall and ``infer_ms`` a request, the tokens decoded, the
     prefill's ms and the ms a decode step, 18 K1f a token (the prefill, then
@@ -261,6 +261,28 @@ Phases, none of which catches an error (any failure exits non-zero):
     32 in phase 9's memory configuration for ``pi0_base`` and for
     ``pi0_fast_libero``'s model (180 tokens) on fake data: wall, samples/s,
     peak GiB, phase 9's launches a step.
+21. Model Arithmetic through the port's entry points, at full width: K1f /
+    K1b at B=8 T=S=1018 and K2f / K2b at [24,16,256,72] (the batch of 8 the
+    ensemble runs) in bf16 against their plain versions with phase 6's
+    tolerances; 3 ``pi05_base`` checkpoints in bf16 (a seeded base and two
+    copies moved by seeded noise of 1% of each leaf's std: fine-tunes of one
+    base, which kai0 mixes); ``scripts/dump_data_torch.py`` dumps 4 batches
+    of 8 from ``FakeDataset``; ``scripts/model_arithmetic_torch.py`` runs
+    gradient descent for 5 iterations, then its f64 mix and save, with the
+    counts at 0 just before: load seconds and bytes, ms a GD iteration, of the
+    mix and of the projections, peak GiB, the f64 mix's and the save's seconds
+    and bytes, and launches of 5 x 4 x phase 9's attention counts a step.
+    Then an ``Ensemble`` called directly gives the vertex losses (ms a loss
+    evaluation, 72 K1f and 108 K2f each), ``inverse_loss`` and ``greedy``
+    (grid 2) weights. Checks: every set of weights on the simplex; gradient
+    descent's loss at or under its uniform start's; greedy's at or under the
+    best vertex's; the saved tensors bit-equal to the host's f64 mix on a
+    seeded sample of 64 keys covering every dtype; a ``Pi0`` loaded from the
+    mixed ``model.safetensors`` gives, on the same draws, the ensemble's loss
+    at the same weights within ``ARITH_MIXED_LOSS_RTOL`` (the reason is
+    there). Last, two depth-2 checkpoints, f32 compute, batch 2, fixed draws:
+    the card's ``Ensemble`` against the host's, vertex losses and the loss
+    at w = (0.3, 0.7) within 1e-5 relative, dL/dw within 1e-3 x its max.
 
 Build: ptxas's register and spill lines of every kernel are printed; the
 tensor-core attention kernels, the ``wgmma`` and split int8 kernels, the
@@ -295,7 +317,11 @@ phase 20's ``launches_pi0_serving`` (one π₀ request, its graph's capture),
 ``launches_pi0_train`` and ``launches_fast_train`` (3 steps each), K1f's
 numbers at the FAST decode step under keys suffixed ``_fast_decode``, and
 K1f's and K1b's at phase 20's batch-32 training shapes under keys suffixed
-``_pi0_train`` and ``_fast_train``.
+``_pi0_train`` and ``_fast_train``; phase 21's ``launches_arithmetic`` (the
+mixing script's run), ``launches_arithmetic_gd_iteration`` and
+``launches_arithmetic_loss`` (one iteration and one loss evaluation of its
+ensemble), and K1f's, K1b's, K2f's and K2b's numbers at its batch of 8 under
+keys suffixed ``_arithmetic``.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -799,21 +825,22 @@ def _grad_errors(got, want) -> list[float]:
     return errs
 
 
-def check_attention_training() -> dict:
+def check_attention_training(batches: dict | None = None) -> dict:
     """Phase 6: forward and backward attention kernels at the training shapes.
 
     MQA at B=2 (f32 and bf16) and at B=32 (bf16, the main path's shape); SigLIP
     at [6,16,256,72] (f32 and bf16: 2 samples x 3 cameras) and at [96,16,256,72]
     (bf16: the batch-32 step's shape). The record's numbers are batch 32's, with
     batch 2's under the same keys suffixed ``_b2``. In bf16 two backward calls
-    must give the same bits.
+    must give the same bits. ``batches`` maps each batch to the suffix of its
+    keys and its dtypes (phase 21 runs batch 8).
     """
     from kai0_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     record = {}
-    cases = (("flash_mha", 2, (torch.float32, torch.bfloat16)), ("flash_mha", TRAIN_BATCH, (torch.bfloat16,)),
-             ("flash_mhsa", 2, (torch.float32, torch.bfloat16)), ("flash_mhsa", TRAIN_BATCH, (torch.bfloat16,)))
+    batches = batches or {2: ("_b2", (torch.float32, torch.bfloat16)), TRAIN_BATCH: ("", (torch.bfloat16,))}
+    cases = [(name, samples, dtypes) for name in ("flash_mha", "flash_mhsa") for samples, (_, dtypes) in batches.items()]
     for name, samples, dtypes in cases:
         if name == "flash_mha":
             batch = samples
@@ -867,7 +894,7 @@ def check_attention_training() -> dict:
                   + " ".join(f"{key}_ms={t:.4f}" for key, t in times.items()))
             if dtype != torch.bfloat16:
                 continue
-            suffix = "_b2" if samples == 2 else ""
+            suffix = batches[samples][0]
             for key, flops, nbytes, err, ms, plain_ms, lib_ms in (
                 (name, fwd_flops, _nbytes(q, k, v, *extra, out, lse), fwd_err.max().item(),
                  times["fwd"], times["plain_fwd"], times["sdpa_fwd"]),
@@ -1001,9 +1028,9 @@ def check_adam_q8() -> dict:
     step_ms = _cuda_ms(lambda: q8.launch_leaves(table, blocks, a, b, b1=b1, b2=b2), runs=10)
     call_ms, per_tensor_ms = _cuda_ms(all_tensors, runs=10), _cuda_ms(per_tensor, runs=5)
     del outs, table
-    # The plain step over every tensor takes ~24 s: one warm-up (the per-tensor checks above already ran its ops).
+    # The plain step over every tensor takes 10-40 s: one run, no warm-up (the per-tensor checks above ran its ops).
     step_plain_ms = _cuda_ms(lambda: q8.adam_q8_leaves_plain(gs, *cols(work), a, b, seeds, b1=b1, b2=b2,
-                                                             deterministic=False), runs=1, warmup=1)
+                                                             deterministic=False), runs=1, warmup=0)
     nbytes = _q8_nbytes(gs, states)
     bound_ms, bound_by = _bound(Q8_OPS_PER_ELEMENT * elements, nbytes, torch.float32)
     print(f"kernel adam_q8 over all {len(gs)} tensors of the full-width model ({elements / 1e9:.3f}B elements, bf16): "
@@ -2451,7 +2478,7 @@ def _train_entry_lora(root: pathlib.Path, weights: pathlib.Path, base) -> dict:
 
 
 ADVANTAGE_CONFIG, PI06_CONFIG = "ADVANTAGE_TORCH_KAI0_FLATTEN_FOLD", "ADVANTAGE_TORCH_PI06_FLATTEN_FOLD"
-ADVANTAGE_EPISODES, ADVANTAGE_FRAMES, ADVANTAGE_HW = 4, 400, (480, 640)  # phase 19's synthetic Agilex dataset
+ADVANTAGE_EPISODES, ADVANTAGE_FRAMES, ADVANTAGE_HW = 2, 400, (480, 640)  # phase 19's synthetic Agilex dataset
 ADVANTAGE_INTERVAL, ADVANTAGE_THRESHOLD = 50, 70.0  # the evaluator's relative interval; discretize's top share, %
 EVAL_PEAK_LIMIT_GIB = 70.0  # the evaluator's batch is cut to the largest power of two whose reckoned peak fits
 
@@ -2756,7 +2783,7 @@ def stage_advantage() -> dict:
 # ---------------------------------------------------------------------------
 
 PI0_CONFIG, FAST_CONFIG, FAST_TRAIN_CONFIG = "pi0_libero", "pi0_fast_droid", "pi0_fast_libero"
-PI0_REQUESTS, FAST_REQUESTS, PHASE20_TRAIN_STEPS = 20, 5, 3
+PI0_REQUESTS, FAST_REQUESTS, PHASE20_TRAIN_STEPS = 20, 2, 3  # a FAST request decodes 256 tokens, ~8 s
 FAST_MAX_DECODING_STEPS = 256  # Pi0FAST.sample_actions' default, which the policy serves
 FAST_CARD_VS_HOST_STEPS = 16
 
@@ -3305,6 +3332,275 @@ def pi0_and_fast() -> dict:
             "fast_train": train["fast"], "records": record}
 
 
+ARITH_CONFIG = "pi05_base"
+ARITH_CHECKPOINTS = 3
+ARITH_PERTURBATION = 0.01  # x each leaf's std: the checkpoints stand for fine-tunes of one base, which kai0 mixes
+ARITH_BATCHES, ARITH_BATCH = 4, 8
+ARITH_GD_ITERATIONS = 5
+ARITH_SAMPLED_KEYS = 64
+# The mixed model.safetensors is bf16: each mixed weight is rounded once more, by at most 2^-9 of itself, where the
+# ensemble keeps its f32 mix. The weights the model casts to bf16 for its products move only where that rounding
+# flips (almost never); the ones it reads in f32 (norm scales, the action and time heads, adaRMS) move by up to 2^-9,
+# with random signs. 1e-3 of the loss holds that and not a mix at other weights.
+ARITH_MIXED_LOSS_RTOL = 1e-3
+ARITH_HOST_LOSS_RTOL = 1e-5
+ARITH_HOST_GRAD_TOL = 1e-3  # x max |dL/dw| of the host
+
+
+class _Calls:
+    """Within the block, each call of ``owner.name`` is timed (wall ms between synchronizes) and ``keep(args, out)``
+    recorded; the attribute is restored after."""
+
+    def __init__(self, owner, name: str, keep=lambda args, out: None):
+        self.owner, self.name, self.keep, self.rows = owner, name, keep, []
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.owner, self.name)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.rows.append(((time.perf_counter() - t) * 1000, self.keep(args, out)))
+            return out
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+    @property
+    def ms(self) -> list[float]:
+        return [ms for ms, _ in self.rows]
+
+
+def _script(name: str):
+    """``scripts/<name>.py`` as a module, so that its ``main`` runs in this process."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"kai0_script_{name}",
+                                                  pathlib.Path(__file__).resolve().parent / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _arithmetic_checkpoints(root: pathlib.Path, model_config) -> list[pathlib.Path]:
+    """Phase 21's checkpoints: a seeded bf16 base, and copies of it with every leaf moved by seeded noise of
+    ``ARITH_PERTURBATION`` x that leaf's std; the files are written from the card by one thread each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kai0_tpu_torch import interop
+    from kai0_tpu_torch.models.pi0 import Pi0
+
+    model = Pi0(model_config, device="cuda", param_dtype=torch.bfloat16).init_weights(
+        torch.Generator(device="cuda").manual_seed(21))
+    base = {name: p.detach() for name, p in model.named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(2100)
+    states = [base]
+    for _ in range(ARITH_CHECKPOINTS - 1):
+        states.append({name: (b.float() + ARITH_PERTURBATION * b.float().std() * torch.randn(
+            b.shape, generator=gen, device="cuda")).to(b.dtype) for name, b in base.items()})
+    paths = [root / f"ckpt_{k}" for k in range(ARITH_CHECKPOINTS)]
+    for path in paths:
+        path.mkdir()
+    with ThreadPoolExecutor(ARITH_CHECKPOINTS) as pool:
+        list(pool.map(lambda k: interop.write_safetensors(states[k], paths[k] / "model.safetensors"),
+                      range(ARITH_CHECKPOINTS)))
+    del model, base, states
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _on_simplex(weights) -> bool:
+    w = np.asarray(weights, dtype=np.float64)
+    return bool(np.all(w >= 0) and abs(w.sum() - 1.0) <= 1e-6)
+
+
+def _arithmetic_card_vs_host(root: pathlib.Path, batch: tuple) -> None:
+    """Phase 21 (g): two depth-2 full-width checkpoints, f32 compute, batch 2, fixed draws: the card's ``Ensemble``
+    (kernels) against the host's (plain versions)."""
+    from kai0_tpu_torch import interop
+    from kai0_tpu_torch.arithmetic import core
+    from kai0_tpu_torch.models.pi0 import Pi0
+
+    cut = _cut_depth_config(2, pi05=True, dtype="float32")
+    paths = []
+    for seed in (211, 212):
+        model = Pi0(cut, device="cuda", param_dtype=torch.bfloat16).init_weights(
+            torch.Generator(device="cuda").manual_seed(seed))
+        paths.append(interop.save_torch_checkpoint(model, root / f"depth2_{seed}").parent)
+        del model
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(213)
+    draws = [(torch.randn((2, 50, 32), generator=gen), torch.rand(2, generator=gen) * 0.999 + 0.001)]
+    results = {}
+    for device in ("cuda", "cpu"):
+        t = time.perf_counter()
+        ensemble = core.Ensemble(paths, cut, device=device)
+        staged = ensemble.stage([batch], draws=draws)
+        vertices = ensemble.checkpoint_losses(staged)
+        loss, grad = ensemble.loss_and_weight_grad([0.3, 0.7], staged)
+        results[device] = (vertices, loss, grad, time.perf_counter() - t)
+        del ensemble, staged
+        torch.cuda.empty_cache()
+    (cv, cl, cg, cs), (hv, hl, hg, hs) = results["cuda"], results["cpu"]
+    vertex_err = max(abs(a - b) / abs(b) for a, b in zip(cv, hv, strict=True))
+    loss_err = abs(cl - hl) / abs(hl)
+    grad_err = np.abs(cg - hg).max() / np.abs(hg).max()
+    print(f"  card vs host (depth 2, f32, N=2, batch 2): vertex losses {cv} / {hv} (worst relative {vertex_err:.3e}); "
+          f"at w=(0.3, 0.7) loss {cl:.6f} / {hl:.6f} (relative {loss_err:.3e}), dL/dw {cg.tolist()} / {hg.tolist()} "
+          f"({grad_err:.3e} x max); card {cs:.1f}s, host {hs:.1f}s")
+    _check(vertex_err <= ARITH_HOST_LOSS_RTOL, f"arithmetic card vs host: vertex losses {cv} vs {hv}")
+    _check(loss_err <= ARITH_HOST_LOSS_RTOL, f"arithmetic card vs host: loss {cl} vs {hl}")
+    _check(grad_err <= ARITH_HOST_GRAD_TOL, f"arithmetic card vs host: dL/dw {cg} vs {hg}")
+
+
+def model_arithmetic() -> dict:
+    """Phase 21: Model Arithmetic at full width through the port's entry points; returns the kernels' record and the
+    launches of the mixing script's run, of one gradient-descent iteration and of one loss evaluation."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from kai0_tpu_torch import interop
+    from kai0_tpu_torch.arithmetic import core
+    from kai0_tpu_torch.models.pi0 import Pi0
+    from kai0_tpu_torch.training import config as train_config
+
+    record = check_attention_training({ARITH_BATCH: ("_arithmetic", (torch.bfloat16,))})
+    model_config = train_config.get_config(ARITH_CONFIG).model
+    n = sum(p.numel() for p in Pi0(model_config, device="meta").parameters())
+    n_cut = sum(p.numel() for p in Pi0(_cut_depth_config(2, pi05=True), device="meta").parameters())
+    needed = (ARITH_CHECKPOINTS + 1) * 2 * n + 2 * 2 * n_cut
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    print(f"model arithmetic: {free / 1e9:.3f} GB free under {tmp}; {needed / 1e9:.3f} GB needed")
+    if free < needed:
+        raise RuntimeError(f"phase 21 needs {needed} bytes free under {tmp}, which has {free}")
+    dump, cli = _script("dump_data_torch"), _script("model_arithmetic_torch")
+    with tempfile.TemporaryDirectory(prefix="kai0_arithmetic_") as root:
+        root = pathlib.Path(root)
+        t = time.perf_counter()
+        paths = _arithmetic_checkpoints(root, model_config)
+        nbytes = sum((p / "model.safetensors").stat().st_size for p in paths)
+        print(f"  {ARITH_CHECKPOINTS} checkpoints ({n} bf16 parameters each, {nbytes / 1e9:.3f} GB in all; a base and "
+              f"{ARITH_CHECKPOINTS - 1} copies moved by {ARITH_PERTURBATION} x each leaf's std) written in "
+              f"{time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        data = dump.main(["--config", ARITH_CONFIG, "--output", str(root / "val.pkl"),
+                          "--num-batches", str(ARITH_BATCHES), "--batch-size", str(ARITH_BATCH)])
+        print(f"  scripts/dump_data_torch.py: {ARITH_BATCHES} batches of {ARITH_BATCH} ({ARITH_CONFIG}, fake data) in "
+              f"{time.perf_counter() - t:.1f}s, {data.stat().st_size} bytes")
+
+        # The main path: the mixing script, gradient descent, then its f64 mix and save, counts at 0 just before.
+        argv = ["--checkpoints", *map(str, paths), "--output", str(root / "mixed"), "--optimize_method",
+                "gradient_descent", "--config", ARITH_CONFIG, "--data-path", str(data),
+                "--num_iterations", str(ARITH_GD_ITERATIONS)]
+        weights_and_loss = lambda args, out: (np.asarray(args[1], np.float32), out if np.isscalar(out) else out[0])  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t = time.perf_counter()
+        with (_Calls(core.Ensemble, "__init__") as load, _Calls(core.Ensemble, "mix") as mix,
+              _Calls(core.Ensemble, "project") as project,
+              _Calls(core.Ensemble, "loss_and_weight_grad", weights_and_loss) as steps,
+              _Calls(core, "mix_state_dicts") as host_mix, _Calls(interop, "write_safetensors") as save):
+            gd = cli.main(argv)
+        wall = time.perf_counter() - t
+        launches = _read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        mixed_path = root / "mixed" / "model.safetensors"
+        per_batch = {k: v if k.startswith("flash") else 0 for k, v in TRAIN_STEP_LAUNCHES.items()}
+        per_iteration = {k: ARITH_BATCHES * v for k, v in per_batch.items()}
+        print(f"  scripts/model_arithmetic_torch.py gradient_descent, {ARITH_GD_ITERATIONS} iterations: {wall:.1f}s in "
+              f"all; load {load.ms[0] / 1000:.1f}s ({nbytes} bytes); ms a GD iteration {[f'{x:.1f}' for x in steps.ms]}; "
+              f"mix ms {[f'{x:.1f}' for x in mix.ms]}; projections ms {[f'{x:.1f}' for x in project.ms]}; f64 mix "
+              f"{host_mix.ms[0] / 1000:.1f}s and save {save.ms[0] / 1000:.1f}s ({mixed_path.stat().st_size} bytes); "
+              f"peak {peak:.3f} GiB; launches {launches}")
+        _check(launches == {k: ARITH_GD_ITERATIONS * v for k, v in per_iteration.items()},
+               f"the mixing script launched {launches}, want {ARITH_GD_ITERATIONS} x {per_iteration}")
+        evaluated = [row for _, row in steps.rows]
+        chosen = [loss for w, loss in evaluated if np.array_equal(w, np.asarray(gd, np.float32))]
+        _check(len(evaluated) == ARITH_GD_ITERATIONS and np.allclose(evaluated[0][0], 1 / ARITH_CHECKPOINTS)
+               and len(chosen) > 0, f"gradient descent evaluated {evaluated} and returned {gd}")
+        gd_loss = chosen[0]
+        print(f"  gradient_descent: losses {[round(loss, 6) for _, loss in evaluated]}; weights {gd}, loss {gd_loss:.6f}")
+        _check(_on_simplex(gd) and gd_loss <= evaluated[0][1],
+               f"gradient descent: weights {gd}, loss {gd_loss} against {evaluated[0][1]} at the uniform start")
+
+        # The other modes on an Ensemble called directly (weights only: their host mixes are skipped).
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        ensemble = core.Ensemble(paths, model_config)
+        load_s = time.perf_counter() - t
+        with open(data, "rb") as f:
+            batches = ensemble.stage(pickle.load(f))
+        _reset_launches()
+        with _Calls(core.Ensemble, "loss", weights_and_loss) as evals:
+            losses = ensemble.checkpoint_losses(batches)
+            per_loss = {k: v // ARITH_CHECKPOINTS for k, v in _read_launches().items()}
+            inverse = core.compute_optimal_weights(losses)
+            inverse_loss = ensemble.loss(inverse, batches)
+            greedy = core.optimize_weights_greedy(ensemble, batches, grid=2)
+            ensemble_loss = ensemble.loss(gd, batches)
+        greedy_loss = min(loss for w, loss in [row for _, row in evals.rows]
+                          if np.array_equal(w, np.asarray(greedy, np.float32)))
+        print(f"  Ensemble called directly: load {load_s:.1f}s; ms a loss evaluation ({ARITH_BATCHES} batches of "
+              f"{ARITH_BATCH}) {[f'{x:.1f}' for x in evals.ms]}; launches of one {per_loss}; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        print(f"  vertex losses {losses}; inverse_loss weights {inverse}, loss {inverse_loss:.6f}; greedy (grid 2) "
+              f"weights {greedy}, loss {greedy_loss:.6f}; at gradient descent's weights {ensemble_loss:.6f}")
+        _check(per_loss == {k: ARITH_BATCHES * v // 2 if k in ("flash_mha", "flash_mhsa") else 0
+                            for k, v in per_batch.items()}, f"a loss evaluation launched {per_loss}")
+        _check(_on_simplex(inverse) and _on_simplex(greedy), f"weights off the simplex: {inverse}, {greedy}")
+        _check(greedy_loss <= min(losses), f"greedy's loss {greedy_loss} above the best vertex's {min(losses)}")
+        del ensemble
+        torch.cuda.empty_cache()
+
+        # The saved tensors against the host's f64 mix, on a seeded sample of keys covering every dtype.
+        states = [interop.read_safetensors(p / "model.safetensors") for p in paths]
+        mixed = interop.read_safetensors(mixed_path)
+        keys = sorted(mixed)
+        sample = set(np.random.default_rng(21).choice(keys, ARITH_SAMPLED_KEYS, replace=False).tolist())
+        for dtype in {mixed[k].dtype for k in keys} - {mixed[k].dtype for k in sample}:
+            sample.add(next(k for k in keys if mixed[k].dtype == dtype))
+        t = time.perf_counter()
+        differing = []
+        for k in sorted(sample):  # the host's mix element by element, in chunks that stay in the CPU's caches
+            flat = [s[k].reshape(-1) for s in states]
+            for start in range(0, flat[0].numel(), 1 << 20):
+                host = core.mix_state_dicts([{k: x[start : start + (1 << 20)]} for x in flat], gd, device="cpu")[k]
+                if not torch.equal(host, mixed[k].reshape(-1)[start : start + (1 << 20)]):
+                    differing.append(k)
+                    break
+        print(f"  the saved mix against the host's f64 mix: {len(sample)} keys "
+              f"({sum(mixed[k].numel() for k in sample)} values, {sorted({str(mixed[k].dtype) for k in sample})}) in "
+              f"{time.perf_counter() - t:.1f}s, {len(differing)} differ")
+        _check(set(mixed) == set(states[0]) and not differing, f"the saved mix differs from the host's: {differing}")
+        del states, mixed
+
+        # A Pi0 loaded from the mixed file, on the same batches and draws, against the ensemble at the same weights.
+        model = interop.load_torch_checkpoint(Pi0(model_config, device="cuda"), mixed_path.parent)
+        with torch.no_grad():
+            mixed_loss = sum(model.compute_loss(b.observation, b.actions, noise=b.noise, time=b.time).mean().item()
+                             for b in batches) / len(batches)
+        rel = abs(mixed_loss - ensemble_loss) / abs(ensemble_loss)
+        print(f"  the mixed model.safetensors in a Pi0: loss {mixed_loss:.6f} against the ensemble's {ensemble_loss:.6f} "
+              f"(relative {rel:.3e}, tolerance {ARITH_MIXED_LOSS_RTOL})")
+        _check(rel <= ARITH_MIXED_LOSS_RTOL, f"the mixed checkpoint's loss {mixed_loss} vs the ensemble's {ensemble_loss}")
+        del model, batches
+        torch.cuda.empty_cache()
+
+        with open(data, "rb") as f:
+            observation, actions = pickle.load(f)[0]
+        rows = lambda tree: {k: rows(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[:2]  # noqa: E731
+        _arithmetic_card_vs_host(root, (rows(observation), actions[:2]))
+    return {"records": record, "launches": launches, "gd_iteration": per_iteration, "loss": per_loss}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is false; the port runs only on a CUDA card", file=sys.stderr)
@@ -3358,6 +3654,9 @@ def main() -> int:
     advantage_launches = timed("19 stage advantage", stage_advantage)
     families = timed("20 pi0 and fast", pi0_and_fast)
     for name, numbers in families["records"].items():
+        record[name].update(numbers)
+    arithmetic = timed("21 model arithmetic", model_arithmetic)
+    for name, numbers in arithmetic["records"].items():
         record[name].update(numbers)
 
     sources = {
@@ -3426,6 +3725,14 @@ def main() -> int:
                     "flash_mha_bwd", "flash_mhsa_bwd", "adam_q8")):
                 _check(families[path].get(name, 0) > 0, f"{name} was not launched by phase 20's {path}")
                 entry[f"launches_{path}"] = families[path][name]
+        # launches_arithmetic: phase 21's mixing script (gradient descent, 5 iterations of 4 batches of 8), counted from
+        # 0 set just before; launches_arithmetic_gd_iteration / _loss: one iteration and one loss evaluation of its
+        # Ensemble (K3, K4 and K5 none: the path has no optimizer step and no int8).
+        if name.startswith("flash_"):
+            _check(arithmetic["launches"][name] > 0, f"{name} was not launched by phase 21's mixing script")
+            entry["launches_arithmetic"] = arithmetic["launches"][name]
+        entry["launches_arithmetic_gd_iteration"] = arithmetic["gd_iteration"][name]
+        entry["launches_arithmetic_loss"] = arithmetic["loss"][name]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,10 +26,11 @@
   file format (an 8-byte little-endian header length, a JSON header of dtype,
   shape and data offsets, then the raw little-endian bytes), with the standard
   library and torch only; bf16 crosses as a 2-byte integer view.
-  ``load_torch_checkpoint`` reads a checkpoint in the ``PI0Pytorch`` key
-  layout into the model (the advantage estimator's too, whose head is
-  ``value_head.{0,2,4}``, as ``kai0_tpu/interop/torch_safetensors.py:320-321``
-  names it; a π₀.₅ model skips those keys), counterpart of
+  ``read_checkpoint_state`` reads a checkpoint in the ``PI0Pytorch`` key
+  layout and ``load_torch_checkpoint`` loads it into the model (the advantage
+  estimator's too, whose head is ``value_head.{0,2,4}``, as
+  ``kai0_tpu/interop/torch_safetensors.py:320-321`` names it; a π₀.₅ model
+  skips those keys), counterpart of
   ``kai0_tpu/interop/torch_safetensors.py:405``, and ``save_torch_checkpoint``
   writes one (``:393``); ``is_torch_checkpoint`` is the reference's detection
   rule and ``load_norm_stats`` reads ``<assets>/<asset_id>/norm_stats.json``
@@ -288,13 +289,12 @@ def save_torch_checkpoint(model: nn.Module, ckpt_dir) -> pathlib.Path:
     return write_safetensors(model.state_dict(), ckpt_dir / CHECKPOINT_FILE)
 
 
-def load_torch_checkpoint(model: nn.Module, ckpt_dir) -> nn.Module:
-    """Load ``model.safetensors`` (a file or its directory) into the model, cast to its parameters' dtypes.
+def read_checkpoint_state(ckpt_dir, expected) -> dict[str, torch.Tensor]:
+    """The tensors of ``model.safetensors`` (a file or its directory) under the keys of ``expected``.
 
     Keys of older transformers releases are renamed and ``lm_head`` (tied to the
-    embedding) is dropped; a missing key raises, and keys the model does not
-    have are logged and skipped, as the JAX package's serving load does
-    (``strict=False``).
+    embedding) is dropped; keys not in ``expected`` are logged and skipped, as
+    the JAX package's serving load does (``strict=False``).
     """
     path = pathlib.Path(ckpt_dir)
     if path.is_dir():
@@ -305,10 +305,15 @@ def load_torch_checkpoint(model: nn.Module, ckpt_dir) -> nn.Module:
             key = rx.sub(repl, key)
         if not (".lm_head." in key or key.endswith("lm_head.weight")):
             state[key] = value
-    expected = model.state_dict().keys()
     if extra := sorted(set(state) - set(expected)):
         logger.warning(f"unmapped torch keys: {extra[:8]} (+{max(len(extra) - 8, 0)} more)")
-    model.load_state_dict({k: v for k, v in state.items() if k in expected}, strict=True)
+    return {k: v for k, v in state.items() if k in expected}
+
+
+def load_torch_checkpoint(model: nn.Module, ckpt_dir) -> nn.Module:
+    """Load ``model.safetensors`` (a file or its directory) into the model, cast to its parameters' dtypes
+    (``read_checkpoint_state``); a missing key raises."""
+    model.load_state_dict(read_checkpoint_state(ckpt_dir, model.state_dict().keys()), strict=True)
     return model
 
 

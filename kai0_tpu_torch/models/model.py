@@ -106,6 +106,12 @@ class Observation:
             episode_length=data.get("episode_length"),
         )
 
+    def to_dict(self) -> dict:
+        """The nested dict ``from_dict`` reads (``image``, ``image_mask``, ...), without the fields that are None."""
+        fields = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        out = {"image": fields.pop("images"), "image_mask": fields.pop("image_masks")}
+        return {**out, **{k: v for k, v in fields.items() if v is not None}}
+
 
 def preprocess_observation(
     observation: Observation,

@@ -8,9 +8,13 @@ packages through ``jax_to_torch_state``. Inputs are numpy arrays from a seed.
 
 from __future__ import annotations
 
+import functools
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from kai0_tpu.interop import torch_safetensors as tsf
@@ -20,6 +24,21 @@ from kai0_tpu_torch import interop as torch_interop
 from kai0_tpu_torch.models import pi0 as torch_pi0
 
 DEBUG = dict(paligemma_variant="dummy", action_expert_variant="dummy", vision_variant="mu/14", dtype="float32", pi05=True)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def worker_share_of_torch_threads():
+    """Torch's CPU threads cut to the pytest-xdist worker's share of the cores for the module that imports this.
+
+    With more threads than cores (each of 6 workers taking all 8), every one of the
+    debug models' many small parallel regions waits for descheduled threads: the
+    slowest port modules ran 5-10x slower in the parallel run than alone. Alone
+    (no xdist) the count is unchanged.
+    """
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+    yield
+    torch.set_num_threads(threads)
 
 
 def assert_same(a, b):
@@ -46,13 +65,19 @@ def perturb_zero_leaves(params: dict, seed: int, std: float = 0.05) -> dict:
     return unflatten_dict(flat)
 
 
+@functools.lru_cache(maxsize=8)
+def _param_shapes(config) -> dict:
+    """The flattened shapes of ``config.init_params``'s tree (tracing the init takes half a second)."""
+    return flatten_dict(jax.eval_shape(config.init_params, jax.random.key(0)))
+
+
 def numpy_params(config, seed: int) -> dict:
     """Every leaf of ``config.init_params``'s tree drawn from ``np.random.default_rng(seed)`` (JAX's eager init
     takes seconds on the CPU): matrices and embeddings ~ N(0, 0.05²), biases ~ N(0, 0.02²), SigLIP's LayerNorm
     scales ~ 1 + N(0, 0.1²) and Gemma's RMSNorm scales (applied as 1 + w) ~ N(0, 0.1²)."""
     rng = np.random.default_rng(seed)
     flat = {}
-    for path, leaf in flatten_dict(jax.eval_shape(config.init_params, jax.random.key(0))).items():
+    for path, leaf in _param_shapes(config).items():
         if path.endswith("scale"):
             value = (1.0 if path.startswith("PaliGemma/img") else 0.0) + 0.1 * rng.standard_normal(leaf.shape)
         else:

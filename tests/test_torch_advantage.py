@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from _torch_parity import DEBUG, model_inputs, to_torch
+from _torch_parity import worker_share_of_torch_threads  # noqa: F401
 from kai0_tpu.interop import torch_safetensors as tsf
 from kai0_tpu.models import advantage as jax_advantage
 from kai0_tpu.models import model as jax_model

@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from _torch_parity import DEBUG
+from _torch_parity import worker_share_of_torch_threads  # noqa: F401
 from kai0_tpu.models import pi0 as jax_pi0
 from kai0_tpu.policies import agilex_policy as jax_agilex
 from kai0_tpu.policies import policy_config as jax_policy_config

@@ -37,6 +37,7 @@ import pytest
 import torch
 
 from _torch_parity import numpy_params, to_torch
+from _torch_parity import worker_share_of_torch_threads  # noqa: F401
 from kai0_tpu.models import gemma_fast as jax_gemma_fast
 from kai0_tpu.models import model as jax_model
 from kai0_tpu.models import pi0_fast as jax_fast

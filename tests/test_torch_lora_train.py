@@ -39,6 +39,7 @@ import pytest
 import torch
 
 from _torch_parity import lora_finetune_runs
+from _torch_parity import worker_share_of_torch_threads  # noqa: F401
 from kai0_tpu_torch.ops import quant
 
 INT8_CHANGE_L2 = (4e-2, 1e-1)  # int8 base, a tensor's change after three steps in L2: median, 9th decile over the tensors

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from _torch_parity import debug_models, jax_augmented_observation, jax_loss_draws, model_inputs, to_torch
+from _torch_parity import worker_share_of_torch_threads  # noqa: F401
 from kai0_tpu.interop import torch_safetensors as tsf
 from kai0_tpu.models import pi0 as jax_pi0
 from kai0_tpu_torch.models import model as torch_model

@@ -1,7 +1,8 @@
 """The port imports nothing of JAX or of the JAX package (the card's machine has neither).
 
 In a fresh interpreter, a ``sys.meta_path`` finder refuses ``jax`` (and
-``jaxlib``) and ``kai0_tpu`` with every submodule; then every module of
+``jaxlib``), ``kai0_tpu`` with every submodule, and ``safetensors`` and
+``optax``, which the card's machine lacks too; then every module of
 ``kai0_tpu_torch`` (found by ``pkgutil.walk_packages``), ``chip_smoke.py`` and
 the port's scripts (``scripts/*_torch.py``, ``scripts/time_*.py``) are
 imported, the scripts under another name than ``__main__``. Imports inside
@@ -15,7 +16,7 @@ import subprocess
 import sys
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-REFUSED = ("jax", "jaxlib", "kai0_tpu")
+REFUSED = ("jax", "jaxlib", "kai0_tpu", "safetensors", "optax")
 SCRIPTS = sorted([*REPO.glob("scripts/*_torch.py"), *REPO.glob("scripts/time_*.py")])
 
 _CHILD = r"""
@@ -54,7 +55,8 @@ def test_the_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr[-4000:]
     assert int(out.stdout.split()[-2]) > 50  # every module of the package was reached
     assert {p.name for p in SCRIPTS} >= {"train_torch.py", "serve_policy_torch.py", "annotate_advantage_torch.py",
-                                         "discretize_advantage_torch.py"}
+                                         "discretize_advantage_torch.py", "model_arithmetic_torch.py",
+                                         "dump_data_torch.py"}
 
 
 def test_no_import_statement_of_jax_or_the_jax_package_at_any_depth():

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from _torch_parity import DEBUG, model_inputs, numpy_params, to_torch
+from _torch_parity import worker_share_of_torch_threads  # noqa: F401
 from kai0_tpu import interop as jax_interop
 from kai0_tpu.models import model as jax_model
 from kai0_tpu.models import pi0 as jax_pi0

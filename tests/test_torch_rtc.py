@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from _torch_parity import DEBUG, debug_models, model_inputs, to_torch
+from _torch_parity import worker_share_of_torch_threads  # noqa: F401
 from kai0_tpu import interop as jax_interop
 from kai0_tpu.interop import torch_safetensors as tsf
 from kai0_tpu.models import model as jax_model

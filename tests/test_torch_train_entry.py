@@ -28,6 +28,7 @@ import sys
 import pytest
 import torch
 
+from _torch_parity import worker_share_of_torch_threads  # noqa: F401
 from kai0_tpu.training import cli as jax_cli
 from kai0_tpu.training import config as jax_config
 from kai0_tpu_torch import interop

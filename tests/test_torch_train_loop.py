@@ -18,6 +18,7 @@ import pathlib
 
 import numpy as np
 
+from _torch_parity import worker_share_of_torch_threads  # noqa: F401
 from kai0_tpu.training import config as jax_config
 from kai0_tpu.training import train_lib as jax_train_lib
 from kai0_tpu_torch.training import config as torch_config

@@ -42,6 +42,7 @@ import torch
 
 from _torch_parity import (DEBUG, debug_models, jax_augmented_observation, jax_loss_draws, model_inputs,
                            numpy_params, to_torch)
+from _torch_parity import worker_share_of_torch_threads  # noqa: F401
 from kai0_tpu.interop import torch_safetensors as tsf
 from kai0_tpu.models import model as jax_model
 from kai0_tpu.models import pi0 as jax_pi0
