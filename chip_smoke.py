@@ -241,14 +241,14 @@ Phases, none of which catches an error (any failure exits non-zero):
     1e-3 x the host's and every gradient within 1e-3 x max; (b) π₀ serving:
     ``pi0_libero``'s model (Gemma-2B + Gemma-300M, So400m/14, horizon 50, 48
     prompt tokens) written to ``model.safetensors`` with synthetic stats,
-    ``create_trained_policy(warmup=True)``, 20 raw LIBERO requests (two
+    ``create_trained_policy(warmup=True)``, 10 raw LIBERO requests (two
     256x256 cameras, 8-dim state) at batch 1 through the CUDA graph: wall and
     ``infer_ms`` p50/p90, 198 K1f and 27 K2f a request (the first request's
     capture, counts at 0 just before), graphed x_0 bit-equal to the eager
     sampler's; (c) π₀ at depth 2: f32 card against f32 host within 1e-3, the
     same weights in bf16 on the card within phase 5's bounds of the f32 host;
     (d) π₀-FAST serving: ``pi0_fast_droid``'s model (Gemma-2B, So400m/14,
-    8-dim actions over 10 steps, 250 prompt tokens), 2 raw DROID requests
+    8-dim actions over 10 steps, 250 prompt tokens), 1 raw DROID request
     (two 180x320 cameras) through ``create_trained_policy`` and the eager
     greedy decoder: wall and ``infer_ms`` a request, the tokens decoded, the
     prefill's ms and the ms a decode step, 18 K1f a token (the prefill, then
@@ -283,6 +283,24 @@ Phases, none of which catches an error (any failure exits non-zero):
     there). Last, two depth-2 checkpoints, f32 compute, batch 2, fixed draws:
     the card's ``Ensemble`` against the host's, vertex losses and the loss
     at w = (0.3, 0.7) within 1e-5 relative, dL/dw within 1e-3 x its max.
+22. Train-Deploy Alignment's data side on the card's machine: phase 18's
+    probe of ``pandas``, ``h5py`` and ``tqdm`` (the JAX package's data tools
+    use them; the port does not); phase 19's writer makes a 2 x 50-frame Agilex dataset
+    (three 480x640 mp4 cameras); ``scripts/time_scaling_torch.py`` (factor
+    2), ``scripts/space_mirroring_torch.py full`` on its output, and
+    ``scripts/split_lerobot_torch.py`` / ``merge_lerobot_torch.py`` (2 parts,
+    merged second first) run as subprocesses, the two chains side by side,
+    each output's episode, frame, video and global-index counts checked; ``MirroredView(TimeScaledView(raw,
+    2))`` against a reader over the offline time-scaled-then-mirrored dataset
+    (state, action and the bookkeeping columns bit-equal, each camera's mean
+    abs difference under 30); both norm-stats scripts' ``compute`` on
+    ``pi05_flatten_fold_normal`` over the dataset with ``augment_mirror``
+    (the files' sizes and first state means); 4 steps of ``train_lib.main`` on
+    that config through both views, batch 32, 8 workers, the seeded init,
+    the last save left out: the norm stats and the item count the loader
+    used, finite loss and gradient norm, phase 9's launches a step, the
+    loader's wait a step and its collation ms a batch (those collated while
+    the steps ran give the workers' samples/s beside the step's).
 
 Build: ptxas's register and spill lines of every kernel are printed; the
 tensor-core attention kernels, the ``wgmma`` and split int8 kernels, the
@@ -321,7 +339,8 @@ K1f's and K1b's at phase 20's batch-32 training shapes under keys suffixed
 mixing script's run), ``launches_arithmetic_gd_iteration`` and
 ``launches_arithmetic_loss`` (one iteration and one loss evaluation of its
 ensemble), and K1f's, K1b's, K2f's and K2b's numbers at its batch of 8 under
-keys suffixed ``_arithmetic``.
+keys suffixed ``_arithmetic``; phase 22's ``launches_aligned_train`` (its 4 steps
+through the views; 0 for the int8 kernels).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -2235,7 +2254,25 @@ TRAIN_ENTRY_STEPS, TRAIN_ENTRY_RESUMED = 4, 6  # the first run's steps, and the 
 # Launches of one full fine-tune step at batch 32 (phase 9's), which every step of the entry's first run must make.
 TRAIN_STEP_LAUNCHES = {"flash_mha": 36, "flash_mha_bwd": 18, "flash_mhsa": 54, "flash_mhsa_bwd": 27, "adam_q8": 1,
                        "row_quant": 0, "row_quant_colscale": 0, "int8_matmul": 0, "int8_matmul_lora": 0}
-DECODER_PROBE = ("pyarrow", "cv2", "av", "torchvision", "decord")  # what could read and decode LeRobot data here
+# What could read and decode LeRobot data here, and what the JAX package's data tools use (not promised here).
+DECODER_PROBE = ("pyarrow", "cv2", "av", "torchvision", "decord", "pandas", "h5py", "tqdm")
+
+
+_PROBED: dict = {}
+
+
+def _probe(modules) -> dict:
+    """Each module's ``__version__`` ("present" without one), or why it does not import; each module probed once a
+    run (phase 22 reads what phase 18 found)."""
+    import importlib
+
+    for module in modules:
+        if module not in _PROBED:
+            try:
+                _PROBED[module] = getattr(importlib.import_module(module), "__version__", "present")
+            except ImportError as e:
+                _PROBED[module] = f"absent ({e})"
+    return {module: _PROBED[module] for module in modules}
 
 
 def _train_entry_config(base, checkpoint_base_dir: str, **overrides):
@@ -2303,7 +2340,6 @@ def _differing(a: dict, b: dict) -> list[str]:
 def train_entry() -> dict:
     """Phase 18: training through the entry point (``train_lib.main`` and ``scripts/train_torch.py``) at full width,
     its checkpoints, resume and serving; returns the launches of the first run's 4 steps."""
-    import importlib
     import os
     import shutil
     import tempfile
@@ -2315,13 +2351,7 @@ def train_entry() -> dict:
     from kai0_tpu_torch.training import checkpoints, train_lib, weight_loaders
     from kai0_tpu_torch.training import config as train_config
 
-    probe = {}
-    for module in DECODER_PROBE:
-        try:
-            probe[module] = getattr(importlib.import_module(module), "__version__", "present")
-        except ImportError as e:
-            probe[module] = f"absent ({e})"
-    print(f"train entry: decoder probe: {probe}")
+    print(f"train entry: decoder probe: {_probe(DECODER_PROBE)}")
     # The loop's MetricsLogger uses wandb when it imports; this machine may have it and has no network.
     os.environ["WANDB_MODE"] = "disabled"
 
@@ -2483,10 +2513,11 @@ ADVANTAGE_INTERVAL, ADVANTAGE_THRESHOLD = 50, 70.0  # the evaluator's relative i
 EVAL_PEAK_LIMIT_GIB = 70.0  # the evaluator's batch is cut to the largest power of two whose reckoned peak fits
 
 
-def _write_advantage_dataset(root: pathlib.Path, prompt: str) -> pathlib.Path:
-    """Phase 19's dataset, written by the port's writer: ``ADVANTAGE_EPISODES`` x ``ADVANTAGE_FRAMES`` frames, three
-    480x640 mp4 cameras (a blocky random image per camera and episode, shifted 2 pixels a frame), a 14-dim state
-    and action (random walks), ``stage_progress_gt`` rising from 0 to 1, one task."""
+def _write_advantage_dataset(root: pathlib.Path, prompt: str, episodes: int = ADVANTAGE_EPISODES,
+                             frames: int = ADVANTAGE_FRAMES) -> pathlib.Path:
+    """Phase 19's dataset, written by the port's writer: ``episodes`` x ``frames`` frames, three 480x640 mp4 cameras
+    (a blocky random image per camera and episode, shifted 2 pixels a frame), a 14-dim state and action (random
+    walks), ``stage_progress_gt`` rising from 0 to 1, one task."""
     from kai0_tpu_torch.data import lerobot_writer
 
     h, w = ADVANTAGE_HW
@@ -2495,8 +2526,8 @@ def _write_advantage_dataset(root: pathlib.Path, prompt: str) -> pathlib.Path:
     feats["stage_progress_gt"] = {"dtype": "float32", "shape": [1]}
     writer = lerobot_writer.LeRobotDatasetWriter(root, feats, fps=30, robot_type="agilex")
     rng = np.random.default_rng(19)
-    n = ADVANTAGE_FRAMES
-    for _ in range(ADVANTAGE_EPISODES):
+    n = frames
+    for _ in range(episodes):
         videos = {}
         for cam in AGILEX_CAMERAS:
             tile = np.repeat(np.repeat(rng.integers(0, 256, (h // 16, w // 16, 3), dtype=np.uint8), 16, 0), 16, 1)
@@ -2783,7 +2814,8 @@ def stage_advantage() -> dict:
 # ---------------------------------------------------------------------------
 
 PI0_CONFIG, FAST_CONFIG, FAST_TRAIN_CONFIG = "pi0_libero", "pi0_fast_droid", "pi0_fast_libero"
-PI0_REQUESTS, FAST_REQUESTS, PHASE20_TRAIN_STEPS = 20, 2, 3  # a FAST request decodes 256 tokens, ~8 s
+# A FAST request decodes 256 tokens, ~9 s: the 1,200 s budget allows 10 π₀ requests and 1 FAST request.
+PI0_REQUESTS, FAST_REQUESTS, PHASE20_TRAIN_STEPS = 10, 1, 3
 FAST_MAX_DECODING_STEPS = 256  # Pi0FAST.sample_actions' default, which the policy serves
 FAST_CARD_VS_HOST_STEPS = 16
 
@@ -3348,20 +3380,22 @@ ARITH_HOST_GRAD_TOL = 1e-3  # x max |dL/dw| of the host
 
 
 class _Calls:
-    """Within the block, each call of ``owner.name`` is timed (wall ms between synchronizes) and ``keep(args, out)``
-    recorded; the attribute is restored after."""
+    """Within the block, each call of ``owner.name`` is timed (wall ms, between synchronizes unless ``sync`` is
+    false) and ``keep(args, out)`` recorded; the attribute is restored after."""
 
-    def __init__(self, owner, name: str, keep=lambda args, out: None):
-        self.owner, self.name, self.keep, self.rows = owner, name, keep, []
+    def __init__(self, owner, name: str, keep=lambda args, out: None, sync: bool = True):
+        self.owner, self.name, self.keep, self.sync, self.rows = owner, name, keep, sync, []
 
     def __enter__(self):
         fn = self.fn = getattr(self.owner, self.name)
 
         def timed(*args, **kwargs):
-            torch.cuda.synchronize()
+            if self.sync:
+                torch.cuda.synchronize()
             t = time.perf_counter()
             out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
+            if self.sync:
+                torch.cuda.synchronize()
             self.rows.append(((time.perf_counter() - t) * 1000, self.keep(args, out)))
             return out
 
@@ -3601,6 +3635,198 @@ def model_arithmetic() -> dict:
     return {"records": record, "launches": launches, "gd_iteration": per_iteration, "loss": per_loss}
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: Train-Deploy Alignment's data side
+# ---------------------------------------------------------------------------
+
+# Phase 19's dataset layout at 50 frames an episode, which the 1,200 s budget allows.
+ALIGN_EPISODES, ALIGN_FRAMES = 2, 50
+ALIGN_FACTOR = 2  # the time scale, offline and in the view
+# 4 steps: main takes batch 0 before it builds the model, and batches 1-3 are collated while it does (a queue of 2 and
+# one in hand), so batch 4 is the first that the workers collate while steps run; the loader's rate is read from the
+# collations of batches 4 on.
+ALIGN_STEPS, ALIGN_WORKERS, ALIGN_PREFETCHED = 4, 8, 4
+ALIGN_VIDEO_TOL = 30.0  # mean abs difference of a decoded frame, view vs offline mp4 (tests/test_augment.py's bound)
+ALIGN_INDICES = (0, 18, 24, 25, 49, 50, 68, 74, 75, 99)  # both episodes of both halves, each episode's last item
+ALIGN_EXACT_KEYS = ("observation.state", "action", "episode_index", "index", "frame_index", "timestamp")
+
+
+def _tools(*chains) -> None:
+    """Each chain a list of ``(script, *args)`` run in turn as subprocesses of ``scripts/<script>``, as a user runs
+    them; the chains side by side. Prints each tool's seconds and last line of output."""
+    import concurrent.futures
+
+    def run(chain):
+        lines = []
+        for script, *args in chain:
+            t = time.perf_counter()
+            out = subprocess.run([sys.executable, f"scripts/{script}", *map(str, args)], capture_output=True, text=True,
+                                 timeout=300, cwd=pathlib.Path(__file__).resolve().parent)
+            _check(out.returncode == 0, f"scripts/{script} failed:\n{out.stderr[-4000:]}")
+            lines.append(f"  scripts/{script}: rc 0 in {time.perf_counter() - t:.1f}s: "
+                         f"{out.stdout.strip().splitlines()[-1]}")
+        return lines
+
+    with concurrent.futures.ThreadPoolExecutor(len(chains)) as pool:
+        for lines in pool.map(run, chains):
+            print("\n".join(lines))
+
+
+def _counts(root: pathlib.Path, episodes: int, frames: int) -> None:
+    """The meta files and the parquet tables of a written dataset both hold ``episodes`` and ``frames``."""
+    import pyarrow.parquet as pq
+
+    from kai0_tpu_torch.data import lerobot_meta
+
+    meta = lerobot_meta.LeRobotMetadata.load(root)
+    rows = [pq.read_table(meta.data_path(ep["episode_index"])).num_rows for ep in meta.episodes]
+    index = np.concatenate([pq.read_table(meta.data_path(ep["episode_index"])).column("index").to_numpy()
+                            for ep in meta.episodes])
+    videos = sum(meta.video_path(ep["episode_index"], k).exists() for ep in meta.episodes for k in meta.video_keys)
+    print(f"    {root.name}: {meta.info['total_episodes']} episodes, {meta.info['total_frames']} frames, rows "
+          f"{rows}, {videos} videos, global index 0..{index.max()}")
+    _check(meta.info["total_episodes"] == len(meta.episodes) == episodes and meta.info["total_frames"] == frames
+           and sum(rows) == frames and [ep["length"] for ep in meta.episodes] == rows
+           and videos == episodes * len(AGILEX_CAMERAS) and np.array_equal(index, np.arange(frames)),
+           f"{root}: counts differ from {episodes} episodes of {frames} frames")
+
+
+def _view_against_offline(raw: pathlib.Path, offline: pathlib.Path, horizon: int) -> None:
+    """``MirroredView(TimeScaledView(raw))`` against a reader over the offline time-scaled-then-mirrored dataset:
+    the parquet keys bit-equal, each camera within ``ALIGN_VIDEO_TOL``."""
+    from kai0_tpu_torch.data import augment_views, lerobot_dataset
+
+    kwargs = dict(action_horizon=horizon, action_sequence_keys=("action",))
+    view = augment_views.MirroredView(augment_views.TimeScaledView(
+        lerobot_dataset.LeRobotDataset(str(raw), **kwargs), ALIGN_FACTOR))
+    rewritten = lerobot_dataset.LeRobotDataset(str(offline), **kwargs)
+    _check(len(view) == len(rewritten) == 2 * ALIGN_EPISODES * -(-ALIGN_FRAMES // ALIGN_FACTOR),
+           f"view {len(view)} vs offline {len(rewritten)} items")
+    worst = dict.fromkeys(AGILEX_CAMERAS, 0.0)
+    for i in ALIGN_INDICES:
+        a, b = view[i], rewritten[i]
+        differing = [k for k in ALIGN_EXACT_KEYS if not np.array_equal(a[k], b[k])]
+        _check(not differing, f"item {i}: {differing} differ between the view and the offline rewrite")
+        for cam in AGILEX_CAMERAS:
+            key = f"observation.images.{cam}"
+            worst[cam] = max(worst[cam], float(np.abs(a[key].astype(np.float32) - b[key].astype(np.float32)).mean()))
+    print(f"  MirroredView(TimeScaledView(raw, {ALIGN_FACTOR})) vs the offline rewrite, {len(view)} items each: at "
+          f"{list(ALIGN_INDICES)} {', '.join(ALIGN_EXACT_KEYS)} bit-equal; worst mean abs image difference "
+          + ", ".join(f"{cam} {d:.3f}" for cam, d in worst.items()) + f" (bound {ALIGN_VIDEO_TOL})")
+    _check(max(worst.values()) < ALIGN_VIDEO_TOL, f"images of the view vs the offline rewrite: {worst}")
+
+
+def train_deploy_alignment() -> dict:
+    """Phase 22: Train-Deploy Alignment's data side on the card's machine: the offline tools as scripts, the
+    train-time views against their output, both norm-stats scripts, and ``train_lib.main`` at full width through
+    the mirror and time-scale views; returns the launches of its steps."""
+    import os
+    import tempfile
+
+    from kai0_tpu_torch.training import checkpoints, data_loader, train_lib, weight_loaders
+    from kai0_tpu_torch.training import config as train_config
+
+    print(f"alignment: the JAX package's data-tool imports (phase 18's probe): {_probe(('pandas', 'h5py', 'tqdm'))}")
+    os.environ["WANDB_MODE"] = "disabled"
+    base = train_config.get_config(ENTRY_CONFIG)
+    with tempfile.TemporaryDirectory(prefix="kai0_align_") as root:
+        root = pathlib.Path(root)
+        t = time.perf_counter()
+        raw = _write_advantage_dataset(root / "raw", base.data.default_prompt, ALIGN_EPISODES, ALIGN_FRAMES)
+        print(f"alignment: dataset of {ALIGN_EPISODES} x {ALIGN_FRAMES} frames, cameras {AGILEX_CAMERAS} at "
+              f"{ADVANTAGE_HW} (mp4v), written in {time.perf_counter() - t:.1f}s")
+
+        # The offline tools, each a subprocess of its script, in two chains side by side: time scale, then mirror
+        # and merge the scaled dataset; a split and its merge (the second part first).
+        kept = ALIGN_EPISODES * -(-ALIGN_FRAMES // ALIGN_FACTOR)
+        t = time.perf_counter()
+        _tools([("time_scaling_torch.py", "--src", raw, "--dst", root / "scaled", "--extraction-factor", ALIGN_FACTOR),
+                ("space_mirroring_torch.py", "full", "--src", root / "scaled", "--dst", root / "scaled_mirrored")],
+               [("split_lerobot_torch.py", "--source_path", raw, "--dst_path", root / "split", "--split_num", 2),
+                ("merge_lerobot_torch.py", "--sources", root / "split" / "split_1", root / "split" / "split_0",
+                 "--dst", root / "merged")])
+        print(f"  (the two chains took {time.perf_counter() - t:.1f}s side by side)")
+        _counts(root / "scaled", ALIGN_EPISODES, kept)
+        _counts(root / "scaled_mirrored", 2 * ALIGN_EPISODES, 2 * kept)
+        for part in ("split_0", "split_1"):
+            _counts(root / "split" / part, ALIGN_EPISODES // 2, ALIGN_FRAMES * ALIGN_EPISODES // 2)
+        _counts(root / "merged", ALIGN_EPISODES, ALIGN_EPISODES * ALIGN_FRAMES)
+
+        t = time.perf_counter()
+        _view_against_offline(raw, root / "scaled_mirrored", base.model.action_horizon)
+        print(f"  (the comparison took {time.perf_counter() - t:.1f}s)")
+
+        # Norm stats of the raw dataset seen through the mirror view, by both scripts (each into its own assets).
+        def on_raw(assets: str, **flags):
+            return dataclasses.replace(base, assets_base_dir=str(root / assets), data=dataclasses.replace(
+                base.data, repo_id=str(raw), assets=train_config.AssetsConfig(asset_id="synthetic"),
+                base_config=train_config.DataConfig(**flags)))
+
+        stats_files = {}
+        for script, assets in (("compute_norm_stats_torch", "assets"), ("compute_norm_stats_fast_torch", "fast")):
+            t = time.perf_counter()
+            batch = {"batch_size": TRAIN_BATCH} if script == "compute_norm_stats_torch" else {}
+            out = _script(script).compute(on_raw(assets, augment_mirror=True), **batch) / "norm_stats.json"
+            stats = json.loads(out.read_text())["norm_stats"]
+            stats_files[script] = out
+            print(f"  {script}.compute(augment_mirror=True): {time.perf_counter() - t:.1f}s, {out.stat().st_size} "
+                  f"bytes, state mean[:4] {[round(x, 6) for x in stats['state']['mean'][:4]]}, keys {sorted(stats)}")
+            _check(set(stats) == {"state", "actions"} and all(
+                len(v) == base.model.action_dim for s in stats.values() for v in s.values()), f"{out}: {stats.keys()}")
+
+        # Train through train_lib.main on the raw dataset through both views, with the norm stats just written. The
+        # base checkpoint (a download) is replaced by the seeded init (config.seed), as phase 20 does; phase 18 holds
+        # the checkpoint loader.
+        config = dataclasses.replace(
+            _train_entry_config(on_raw("assets", augment_mirror=True, augment_time_scale=ALIGN_FACTOR),
+                                str(root / "checkpoints"), num_train_steps=ALIGN_STEPS, num_workers=ALIGN_WORKERS,
+                                wandb_enabled=False, weight_loader=weight_loaders.NoOpWeightLoader()),
+            exp_name="alignment")
+        print(f"alignment: train_lib.main({ENTRY_CONFIG!r}, augment_mirror=True, augment_time_scale={ALIGN_FACTOR}, "
+              f"batch {TRAIN_BATCH}, {ALIGN_STEPS} steps, {ALIGN_WORKERS} loader workers, phase 9's memory "
+              f"configuration, the seeded init; the last step's save left out, phase 18 holds saves)")
+        saved = checkpoints.save_state
+        checkpoints.save_state = lambda *args, **kwargs: 0
+        try:
+            with _Calls(data_loader, "create_data_loader",
+                        keep=lambda args, out: (out.data_config().norm_stats, len(out._loader._dataset))) as loaders, \
+                    _Calls(data_loader.DataLoader, "_collate", sync=False) as collates:
+                _reset_launches()
+                recorder = _StepRecorder("alignment", TRAIN_BATCH, TRAIN_STEP_LAUNCHES)
+                t = time.perf_counter()
+                recorder.start()
+                model, state = train_lib.main(config, on_step=recorder)
+                total_s = time.perf_counter() - t
+                launches = _read_launches()
+        finally:
+            checkpoints.save_state = saved
+        (_, (norm_stats, items)), = loaders.rows
+        walls = [r["wall_ms"] for r in recorder.rows[1:]]
+        step_ms = statistics.median(walls)
+        # The workers' rate: the producer's wall for a batch (8 workers decode, flip and transform 32 items, then the
+        # stack), over the batches collated while steps ran.
+        collate_ms = collates.ms[ALIGN_PREFETCHED:]
+        print(f"  alignment main: {total_s:.1f}s in all; {items} items ({ALIGN_EPISODES} x {kept // ALIGN_EPISODES} "
+              f"kept frames, and their mirrored twins); norm stats "
+              f"{sorted(norm_stats) if norm_stats else None}; median wall_ms over steps 1-{ALIGN_STEPS - 1} = "
+              f"{step_ms:.2f} ({TRAIN_BATCH / step_ms * 1000:.3f} samples/s); "
+              f"loader wait ms {[round(r['loader_wait_ms'], 3) for r in recorder.rows]}; peak GiB "
+              f"{[round(r['peak_gib'], 3) for r in recorder.rows]}; launches over {ALIGN_STEPS} steps "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        print(f"  the loader's collation, ms a batch of {TRAIN_BATCH} ({ALIGN_WORKERS} workers): before the steps "
+              f"{[round(ms, 1) for ms in collates.ms[:ALIGN_PREFETCHED]]}, while they ran "
+              f"{[round(ms, 1) for ms in collate_ms]}"
+              + (f"; median {statistics.median(collate_ms):.1f} ms = "
+                 f"{TRAIN_BATCH / statistics.median(collate_ms) * 1000:.3f} samples/s against the step's "
+                 f"{TRAIN_BATCH / step_ms * 1000:.3f}" if collate_ms else "; none while they ran"))
+        _check(state.step == ALIGN_STEPS and norm_stats is not None and items == 2 * kept,
+               f"alignment main: step {state.step}, norm stats {norm_stats is not None}, {items} items")
+        del model, state
+        torch.cuda.empty_cache()
+    print(f"alignment: temporary files deleted; {torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is false; the port runs only on a CUDA card", file=sys.stderr)
@@ -3658,6 +3884,7 @@ def main() -> int:
     arithmetic = timed("21 model arithmetic", model_arithmetic)
     for name, numbers in arithmetic["records"].items():
         record[name].update(numbers)
+    aligned_launches = timed("22 train-deploy alignment", train_deploy_alignment)
 
     sources = {
         "flash_mha": ("kai0_tpu_torch/ops/csrc/flash_mqa_fwd.cu", "kai0_tpu/ops/pallas_attention.py:109"),
@@ -3733,6 +3960,11 @@ def main() -> int:
             entry["launches_arithmetic"] = arithmetic["launches"][name]
         entry["launches_arithmetic_gd_iteration"] = arithmetic["gd_iteration"][name]
         entry["launches_arithmetic_loss"] = arithmetic["loss"][name]
+        # launches_aligned_train: phase 22's 4 steps of train_lib.main through the mirror and time-scale views,
+        # counted from 0 set just before main (K4, K5: 0, the path has no int8).
+        if name in ("flash_mha", "flash_mha_bwd", "flash_mhsa", "flash_mhsa_bwd", "adam_q8"):
+            _check(aligned_launches[name] > 0, f"{name} was not launched by phase 22's training")
+        entry["launches_aligned_train"] = aligned_launches[name]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

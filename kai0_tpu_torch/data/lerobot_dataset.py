@@ -31,14 +31,14 @@ from kai0_tpu_torch.data import lerobot_meta as _meta
 _CAPS_PER_THREAD = 64  # open video readers per thread (LRU)
 
 
-def _require(module: str, package: str, purpose: str):
-    """``import module``, or ``ImportError`` naming the package this reader needs."""
+def _require(module: str, package: str, purpose: str, *, user: str = "the LeRobot reader"):
+    """``import module``, or ``ImportError`` naming the package that ``user`` needs."""
     import importlib
 
     try:
         return importlib.import_module(module)
     except ImportError as e:
-        raise ImportError(f"the LeRobot reader needs {package} to {purpose}, and it does not import here ({e})") from e
+        raise ImportError(f"{user} needs {package} to {purpose}, and it does not import here ({e})") from e
 
 
 def resolve_dataset_root(repo_id: str) -> pathlib.Path:
@@ -194,22 +194,35 @@ class LeRobotDataset:
         episode_index, frame_index = self.locate(index)
         return self.get_frame(episode_index, frame_index)
 
-    def get_frame(self, episode_index: int, frame_index: int, *, key_prefix: str = "") -> dict:
+    def get_frame(
+        self,
+        episode_index: int,
+        frame_index: int,
+        *,
+        key_prefix: str = "",
+        index_map=None,
+        logical_length: int | None = None,
+    ) -> dict:
         """One frame of an episode: its scalar columns, its action chunks (clamped to the episode) and its decoded
         video frames, every key prefixed by ``key_prefix`` (``kai0_tpu/data/lerobot_dataset.py:203-240``; the
-        advantage dataset reads its comparison frame as ``his_-100_*``)."""
+        advantage dataset reads its comparison frame as ``his_-100_*``).
+
+        ``index_map`` / ``logical_length`` let a view re-index the episode (``augment_views.TimeScaledView``):
+        ``frame_index`` and the chunk's rows are then logical positions, clamped to ``logical_length`` and mapped
+        to table rows by ``index_map`` (called on an int and on an index array)."""
         table = self._tables.get(episode_index)
-        length = self._episode_lengths[episode_index]
+        length = self._episode_lengths[episode_index] if logical_length is None else logical_length
+        phys = (lambda i: i) if index_map is None else index_map
         item: dict = {}
         for name, col in table.items():
             if name in self._action_sequence_keys:
                 idx = np.minimum(np.arange(frame_index, frame_index + self._action_horizon), length - 1)
-                item[key_prefix + name] = np.asarray(col[idx])
+                item[key_prefix + name] = np.asarray(col[phys(idx)])
             else:
-                item[key_prefix + name] = col[frame_index]
+                item[key_prefix + name] = col[phys(frame_index)]
         for video_key in self.metadata.video_keys:
             item[key_prefix + video_key] = self._videos.read_frame(
-                self.metadata.video_path(episode_index, video_key), frame_index
+                self.metadata.video_path(episode_index, video_key), int(phys(frame_index))
             )
         return item
 

@@ -79,10 +79,14 @@ class DataConfig:
     # Optional episode subset.
     episodes: Sequence[int] | None = None
 
-    # Train-time mirror and time-scale views and the RLDS stream of the JAX package: the port's loader raises on
-    # them (data_loader.create_dataset / create_data_loader name the ROADMAP items that port them).
+    # Train-time space mirroring (data/augment_views.MirroredView): every frame plus its mirrored twin, the offline
+    # create_mirror_and_merge without the second copy on disk; the arm blocks of the bimanual [L(7)][R(7)] layout.
     augment_mirror: bool = False
+    augment_mirror_dims: tuple[int, int] = (7, 7)
+    # Train-time time scaling (TimeScaledView: every Nth frame; 1 = off), the offline time_scale_dataset as a view.
+    # The offline split mode stays augment/time_scaling.time_scaling_with_split.
     augment_time_scale: int = 1
+    # The RLDS stream of the JAX package: the port's loader raises on it (ROADMAP Queue 1 item 4).
     rlds_data_dir: str | None = None
 
 

@@ -10,9 +10,10 @@ Counterpart of ``kai0_tpu/training/data_loader.py:52-428``:
   transforms; ``create_dataset``: fake data or a LeRobot dataset (episode
   subset, per-task split, the prompt from the task), for the advantage
   estimator wrapped in ``AdvantageLerobotDataset`` (each frame paired with a
-  comparison frame of its episode). The JAX package's train-time mirror and
-  time-scale views and the RLDS stream raise with the ROADMAP item that ports
-  them.
+  comparison frame of its episode), with ``augment_time_scale`` /
+  ``augment_mirror`` wrapped in ``TimeScaledView`` then ``MirroredView``
+  (``data/augment_views.py``). The RLDS stream raises with the ROADMAP item
+  that ports it.
 - ``DataLoader`` walks JAX's index stream (a permutation seeded by
   ``seed + epoch`` per epoch, the last partial batch dropped with
   ``drop_last``) and collates items with ``np.stack`` (64-bit arrays then
@@ -87,21 +88,16 @@ def transform_stack(data_config, model_config) -> list:
 
 
 def create_dataset(data_config, model_config, *, advantage: bool = False, split: str = "all"):
-    """Fake data, or a LeRobot dataset with action chunking (``episodes`` subset, per-task ``split``);
+    """Fake data, or a LeRobot dataset with action chunking (``episodes`` subset, per-task ``split``), time-scaled
+    and then mirrored as ``augment_time_scale`` / ``augment_mirror`` say (``kai0_tpu/training/data_loader.py:124-138``);
     ``advantage`` pairs each frame with a comparison frame (``AdvantageLerobotDataset``)."""
-    augment = data_config.augment_time_scale != 1 or data_config.augment_mirror
+    time_scale = data_config.augment_time_scale
     repo_id = data_config.repo_id
     if repo_id is None or repo_id == "fake":
         # As loud as the real path: a run that sets augmentation flags must not train unaugmented fake data.
-        if augment:
+        if time_scale != 1 or data_config.augment_mirror:
             raise ValueError("train-time augmentation requires a real LeRobot dataset, not fake data")
         return FakeDataset(model_config, num_samples=_FAKE_SAMPLES)
-    if augment and advantage:
-        # Estimator training runs unaugmented (reference pi0_pytorch.py:487) on the raw episode structure.
-        raise ValueError("train-time augmentation is not supported for advantage-estimator datasets")
-    if augment:
-        raise NotImplementedError("augment_mirror / augment_time_scale: the train-time views "
-                                  "(kai0_tpu/data/augment_views.py) are ROADMAP Queue 1 item 12")
 
     from kai0_tpu_torch.data import lerobot_dataset
 
@@ -116,6 +112,19 @@ def create_dataset(data_config, model_config, *, advantage: bool = False, split:
     dataset = open_dataset(list(data_config.episodes) if data_config.episodes is not None else None)
     if split != "all":
         dataset = open_dataset(lerobot_dataset.episodes_split_through_task(dataset, split))
+    if time_scale < 1:
+        raise ValueError(f"augment_time_scale must be >= 1, got {time_scale}")
+    if time_scale > 1 or data_config.augment_mirror:
+        if advantage:
+            # Estimator training runs unaugmented (reference pi0_pytorch.py:487) on the raw episode structure.
+            raise ValueError("train-time augmentation is not supported for advantage-estimator datasets")
+        from kai0_tpu_torch.data.augment_views import MirroredView, TimeScaledView
+
+        if time_scale > 1:  # over the raw dataset: it gathers strided chunk rows through get_frame
+            dataset = TimeScaledView(dataset, time_scale)
+        if data_config.augment_mirror:
+            left_dim, right_dim = data_config.augment_mirror_dims
+            dataset = MirroredView(dataset, left_dim=left_dim, right_dim=right_dim)
     if advantage:
         from kai0_tpu_torch.data import advantage_dataset
 

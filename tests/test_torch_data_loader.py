@@ -17,8 +17,8 @@
   the 70 frames. Two spawn workers give the batches of the producer thread.
 - The index stream: equal to JAX's across an epoch boundary, with and
   without ``drop_last``.
-- The augmentation views and the RLDS stream raise; ``advantage=True`` builds
-  the advantage estimator's dataset.
+- The augmentation flags build the train-time views, the RLDS stream
+  raises; ``advantage=True`` builds the advantage estimator's dataset.
 """
 
 import dataclasses
@@ -194,9 +194,14 @@ def test_unported_data_paths_raise(dataset_root):
     with pytest.raises(ValueError, match="real LeRobot dataset"):
         data_loader.create_dataset(dataclasses.replace(data, augment_mirror=True), cfg.model)
     lerobot = dataclasses.replace(data, repo_id=str(dataset_root))
-    for flag in (dict(augment_mirror=True), dict(augment_time_scale=2)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            data_loader.create_dataset(dataclasses.replace(lerobot, **flag), cfg.model)
+    # The augmentation flags are ported: they wrap the dataset in the train-time views
+    # (tests/test_torch_augment_views.py holds the views to JAX's).
+    from kai0_tpu_torch.data import augment_views
+
+    mirrored = data_loader.create_dataset(dataclasses.replace(lerobot, augment_mirror=True), cfg.model)
+    assert isinstance(mirrored, augment_views.MirroredView) and len(mirrored) == 2 * sum(LENGTHS)
+    scaled = data_loader.create_dataset(dataclasses.replace(lerobot, augment_time_scale=2), cfg.model)
+    assert isinstance(scaled, augment_views.TimeScaledView) and len(scaled) == sum(-(-n // 2) for n in LENGTHS)
     from kai0_tpu_torch.data import advantage_dataset
 
     paired = data_loader.create_dataset(lerobot, cfg.model, advantage=True)

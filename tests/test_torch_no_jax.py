@@ -1,8 +1,9 @@
 """The port imports nothing of JAX or of the JAX package (the card's machine has neither).
 
 In a fresh interpreter, a ``sys.meta_path`` finder refuses ``jax`` (and
-``jaxlib``), ``kai0_tpu`` with every submodule, and ``safetensors`` and
-``optax``, which the card's machine lacks too; then every module of
+``jaxlib``), ``kai0_tpu`` with every submodule, ``safetensors`` and ``optax``, which
+the card's machine lacks too, and ``pandas`` and ``tqdm``, which it is not
+promised (the JAX package's data tools use them); then every module of
 ``kai0_tpu_torch`` (found by ``pkgutil.walk_packages``), ``chip_smoke.py`` and
 the port's scripts (``scripts/*_torch.py``, ``scripts/time_*.py``) are
 imported, the scripts under another name than ``__main__``. Imports inside
@@ -16,7 +17,7 @@ import subprocess
 import sys
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-REFUSED = ("jax", "jaxlib", "kai0_tpu", "safetensors", "optax")
+REFUSED = ("jax", "jaxlib", "kai0_tpu", "safetensors", "optax", "pandas", "tqdm")
 SCRIPTS = sorted([*REPO.glob("scripts/*_torch.py"), *REPO.glob("scripts/time_*.py")])
 
 _CHILD = r"""
@@ -56,7 +57,10 @@ def test_the_port_imports_neither_jax_nor_the_jax_package():
     assert int(out.stdout.split()[-2]) > 50  # every module of the package was reached
     assert {p.name for p in SCRIPTS} >= {"train_torch.py", "serve_policy_torch.py", "annotate_advantage_torch.py",
                                          "discretize_advantage_torch.py", "model_arithmetic_torch.py",
-                                         "dump_data_torch.py"}
+                                         "dump_data_torch.py", "compute_norm_stats_torch.py",
+                                         "compute_norm_stats_fast_torch.py", "space_mirroring_torch.py",
+                                         "time_scaling_torch.py", "convert_h5_lerobot_torch.py",
+                                         "merge_lerobot_torch.py", "split_lerobot_torch.py"}
 
 
 def test_no_import_statement_of_jax_or_the_jax_package_at_any_depth():
