@@ -75,7 +75,7 @@ Phases, none of which catches an error (any failure exits non-zero):
    samples/s, loss, grad_norm, peak GiB, launches (36/18 flash_mha
    forward/backward, 54/27 flash_mhsa, one adam_q8 over all 811 parameter
    tensors).
-   A second run from the same seed must give identical losses; its last step
+   A second run of 2 steps from the same seed must give the same losses; its last step
    runs under torch.profiler for device time by kernel family, and must launch
    none of the scalar attention kernels (they serve f32 only).
 
@@ -127,7 +127,7 @@ Phases, none of which catches an error (any failure exits non-zero):
     GiB and the launches of all kernels (asserted against the counts worked out
     from the code). The frozen leaves, codes and scales must be bit-identical
     after the steps and the optimizer state must cover the trainable leaves
-    only. A second run from the same seed must give identical losses; its last
+    only. A second run of 2 steps from the same seed must give the same losses; its last
     step runs under torch.profiler, whose int8 kernels must be the ``wgmma``
     kernel in the forward orientation for every forward product (K4a, and K4b
     at the attention sites) and in the backward's orientation for every ``dx``,
@@ -151,9 +151,9 @@ Phases, none of which catches an error (any failure exits non-zero):
     prefill products on ``wgmma`` and the denoise products on split-K.
 15. RTC through the entry points, on phase 14's checkpoint, bf16 then int8:
     ``create_trained_policy(get_config("pi05_rtc_flatten_fold_inference"),
-    ..., prompt_buckets=[64, 128], warmup=True)`` captures, per bucket, the
+    ..., prompt_buckets=[64], warmup=True)`` captures, per bucket, the
     unguided sampler and the sampler guided by a chunk of 50 rows (the vjp
-    inside the graph). 20 rounds of the port's ``RTCClient``
+    inside the graph). 10 rounds of the port's ``RTCClient``
     (execute_horizon 25, 25 Hz) on raw Agilex requests; rounds 0 and 1
     capture the bucket's two graphs with the counts at 0, the counts after the
     rounds are those captures twice, and a guided request launches 198
@@ -168,7 +168,7 @@ Phases, none of which catches an error (any failure exits non-zero):
     rest, and K5's column-scale launches). Then a guided sample at full
     width, depth 2, f32: card (kernels) against host CPU within 1e-3.
 16. Batched requests: ``infer_batch`` of raw Agilex requests at padded sizes
-    1, 2, 4 and 8 (bucket 64, 20 batches each) in bf16 and 4 in int8, each
+    1, 2, 4 and 8 (bucket 64, 10 batches each) in bf16 and 4 in int8, each
     row within phase 5's bf16 bounds of the same request served alone with
     the same noise row; wall p50, robots per second and peak GiB; an int8
     batch of 4 runs every product on ``wgmma``. Then ``BatchingPolicy
@@ -176,9 +176,9 @@ Phases, none of which catches an error (any failure exits non-zero):
     gets its own replies.
 17. The port's websocket server on this machine: an import probe of
     ``websockets`` and ``msgpack`` (printed), RTC's bf16 policy of phase 15
-    served on 127.0.0.1 from a thread, ``GET /healthz``, 20 raw Agilex
+    served on 127.0.0.1 from a thread, ``GET /healthz``, 10 raw Agilex
     requests from the port's client beside the same requests in process,
-    bytes per request and reply, and 20 RTC rounds over the wire.
+    bytes per request and reply, and 10 RTC rounds over the wire.
 18. Training through the entry point, at full width: an import probe of
     ``pyarrow``, ``cv2``, ``av``, ``torchvision`` and ``decord`` (printed: what
     could read LeRobot parquet and mp4 here); the free disk of the temporary
@@ -217,7 +217,8 @@ Phases, none of which catches an error (any failure exits non-zero):
     9's; (d) the estimator's loss, value and gradients at depth 2, f32, card
     against host within phase 8's 1e-3 x max; (e) step 3's checkpoint in the
     port's ``SimpleValueEvaluator``: one episode in 2-timestep mode at the KAI0
-    registry batch of 160 and in 1-timestep mode at the PI06 batch of 400 (or
+    registry batch of 160 (the first episode of (f)'s annotation, timed as
+    the call it is) and in 1-timestep mode at the PI06 batch of 400 (or
     the largest power of two whose reckoned peak, ``_eval_peak_gib``, fits 70
     GiB): frames/s, decode and resize seconds, host ms and device ms a batch,
     peak, 18 K1f and 27 K2f launches a forward, every value finite and in
@@ -259,8 +260,9 @@ Phases, none of which catches an error (any failure exits non-zero):
     host, within 1e-3 x their max, and the first 16 greedy tokens are equal;
     (f) 3 steps of ``train_lib.main`` at batch
     32 in phase 9's memory configuration for ``pi0_base`` and for
-    ``pi0_fast_libero``'s model (180 tokens) on fake data: wall, samples/s,
-    peak GiB, phase 9's launches a step.
+    ``pi0_fast_libero``'s model (180 tokens) on fake data read in a thread
+    (no spawn workers), the last save left out: wall, samples/s, peak GiB,
+    phase 9's launches a step.
 21. Model Arithmetic through the port's entry points, at full width: K1f /
     K1b at B=8 T=S=1018 and K2f / K2b at [24,16,256,72] (the batch of 8 the
     ensemble runs) in bf16 against their plain versions with phase 6's
@@ -268,10 +270,10 @@ Phases, none of which catches an error (any failure exits non-zero):
     copies moved by seeded noise of 1% of each leaf's std: fine-tunes of one
     base, which kai0 mixes); ``scripts/dump_data_torch.py`` dumps 4 batches
     of 8 from ``FakeDataset``; ``scripts/model_arithmetic_torch.py`` runs
-    gradient descent for 5 iterations, then its f64 mix and save, with the
+    gradient descent for 3 iterations, then its f64 mix and save, with the
     counts at 0 just before: load seconds and bytes, ms a GD iteration, of the
     mix and of the projections, peak GiB, the f64 mix's and the save's seconds
-    and bytes, and launches of 5 x 4 x phase 9's attention counts a step.
+    and bytes, and launches of 3 x 4 x phase 9's attention counts a step.
     Then an ``Ensemble`` called directly gives the vertex losses (ms a loss
     evaluation, 72 K1f and 108 K2f each), ``inverse_loss`` and ``greedy``
     (grid 2) weights. Checks: every set of weights on the simplex; gradient
@@ -301,6 +303,31 @@ Phases, none of which catches an error (any failure exits non-zero):
     used, finite loss and gradient norm, phase 9's launches a step, the
     loader's wait a step and its collation ms a batch (those collated while
     the steps ran give the workers' samples/s beside the step's).
+23. The int8 modes of ``ops/quant.py`` beyond the frozen base: (a) phase 9's
+    full fine-tune with ``knobs.int8_sb_gemma="ffn"`` (SwitchBack on the
+    Gemma FFN: the JAX package's full fine-tune default), phase 9's seed and
+    batches: the bf16 step-0 gradient of phase 9's model, then the same
+    model through ``init_train_state`` with the knob, its step-0 loss within
+    5% of phase 9's and its gradient's cosine to the bf16 one above 0.98
+    (JAX's bars, ``tests/test_quant.py:566-573``); 4 steps and a profiled
+    fifth: wall, samples/s against phase 9's of this call, peak, device time
+    by kernel family, and each step's launches equal to phase 9's plus the
+    K5 and K4b counts worked out in ``_sb_step_launches``; (b) every
+    SwitchBack site (Gemma's attention and FFN, SigLIP's attention, MLP and
+    head) on a fresh model: the same two bars and one step's launches; (c)
+    the fused SwitchBack FFN at full width (one chunk of 7,744 rows, D 2048,
+    F 16384) through K5 and K4b and through their plain versions on the
+    card, forward and ``dx`` bit-equal, the three weight gradients within
+    one bf16 step; K5 on the weights' rows and K5 / K4b (forward and ``dx``)
+    at SigLIP's shapes, M = 768 (serving) and 24,576 (training), bit-equal,
+    timed beside the bound; (d) inside phase 14, on its checkpoint and first
+    10 requests: ``create_trained_policy(quantize=True)`` with
+    ``knobs.int8_weight_only`` and with ``knobs.int8_siglip="all"``, the
+    first request capturing the graph with the counts at 0: no K5 or K4b
+    launch in a weight-only request, SigLIP + Gemma int8 launching 163 more
+    of each than Gemma-only int8 (27 layers x 6 projections and the head),
+    the actions within phase 11's int8 bound of phase 14's bf16 actions,
+    ``infer_ms`` p50 / p90 beside phase 14's bf16 and int8.
 
 Build: ptxas's register and spill lines of every kernel are printed; the
 tensor-core attention kernels, the ``wgmma`` and split int8 kernels, the
@@ -340,7 +367,10 @@ mixing script's run), ``launches_arithmetic_gd_iteration`` and
 ``launches_arithmetic_loss`` (one iteration and one loss evaluation of its
 ensemble), and K1f's, K1b's, K2f's and K2b's numbers at its batch of 8 under
 keys suffixed ``_arithmetic``; phase 22's ``launches_aligned_train`` (its 4 steps
-through the views; 0 for the int8 kernels).
+through the views; 0 for the int8 kernels); for K5 (both entries) and K4b,
+phase 23's ``launches_sb_train`` (one step of (a)) and
+``launches_serving_siglip_int8`` (the capture of (d)'s SigLIP + Gemma int8
+request).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -359,6 +389,7 @@ import torch
 
 REQUESTS = 5
 TRAIN_STEPS = 5
+TRAIN_STEPS_AGAIN = 2  # phases 9 and 13: the determinism check's second run, its last step profiled
 TRAIN_BATCH = 32  # per card: kai0's fine-tunes run a global batch of 256 on 8 cards
 TOL = {"float32": {"max": 1e-4}, "bfloat16": {"max": 2e-2, "mean": 2e-3}}
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -1511,8 +1542,10 @@ def _lora_int8_step_launches(batch: int) -> dict:
     return {k: 2 * depth * fwd[k] + (depth - 1) * bwd[k] + last[k] for k in fwd}
 
 
-def train(kind: str = "full") -> tuple[dict, list]:
-    """Phases 9 and 13: a fine-tune step at full width, 5 steps twice from the same seed.
+def train(kind: str = "full") -> tuple[dict, list, float]:
+    """Phases 9 and 13: a fine-tune step at full width, 5 steps, then 2 again from the same seed (the second profiled).
+
+    Returns the first run's launches, its losses and the median wall ms of its steps 1-4.
 
     ``kind="full"``: the full fine-tune (bf16 parameters, int8 AdamW moments).
     ``kind="lora_int8"``: LoRA over a frozen int8 base (f32 trainable leaves, bf16 AdamW moments).
@@ -1572,16 +1605,15 @@ def train(kind: str = "full") -> tuple[dict, list]:
                 _check(len(holders) == 2 * 18 * 6, f"{len(holders)} int8 holders, want {2 * 18 * 6}")
         losses, walls = [], []
         _reset_launches()
-        for step, batch in enumerate(batches):
-            profile = run == 1 and step == TRAIN_STEPS - 1
+        for step, batch in enumerate(batches if run == 0 else batches[:TRAIN_STEPS_AGAIN]):
+            profile = run == 1 and step == TRAIN_STEPS_AGAIN - 1
             before, leaves_before = _read_launches(), adam_q8.LEAVES["adam_q8"]
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t = time.perf_counter()
             if profile:
-                with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-                ) as prof:
+                # Device events only: reading a profile with the host's ops too took 18-37 s a step.
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
                     state, info = train_lib.train_step(model, state, batch, train_config)
                     torch.cuda.synchronize()
             else:
@@ -1610,10 +1642,9 @@ def train(kind: str = "full") -> tuple[dict, list]:
             if not profile:
                 walls.append(wall_ms)
         if run == 0:
-            run_launches = _read_launches()
-            print(f"  run 0: median wall_ms over steps 1-{TRAIN_STEPS - 1} = {statistics.median(walls[1:]):.2f} "
-                  f"({TRAIN_BATCH / statistics.median(walls[1:]) * 1000:.3f} samples/s); launches over "
-                  f"{TRAIN_STEPS} steps {run_launches}")
+            run_launches, median_ms = _read_launches(), statistics.median(walls[1:])
+            print(f"  run 0: median wall_ms over steps 1-{TRAIN_STEPS - 1} = {median_ms:.2f} "
+                  f"({TRAIN_BATCH / median_ms * 1000:.3f} samples/s); launches over {TRAIN_STEPS} steps {run_launches}")
         if kind == "lora_int8":
             after = model.state_dict()
             changed = [k for k, v in frozen_before.items() if not torch.equal(after[k], v)]
@@ -1627,7 +1658,7 @@ def train(kind: str = "full") -> tuple[dict, list]:
         runs.append(losses)
         del state
         torch.cuda.empty_cache()
-    _check(runs[0] == runs[1], f"two runs from the same seed differ: {runs}")
+    _check(runs[0][:len(runs[1])] == runs[1], f"two runs from the same seed differ: {runs}")
     families, busy_ms, attention = _profile_families(prof)
     print(f"  profiled step: summed device time {busy_ms:.2f} ms; by kernel family:")
     for fam, (ms, count) in sorted(families.items(), key=lambda kv: -kv[1][0]):
@@ -1655,7 +1686,7 @@ def train(kind: str = "full") -> tuple[dict, list]:
         expected = {"wgmma nt": want["int8_matmul_lora"] + nt_k4b, "wgmma nn": want["int8_matmul"] - nt_k4b,
                     "splitk nt": 0, "mma.sync nt": 0, "mma.sync nn": 0}
         _check(counts == expected, f"int8 kernels of the profiled step: {counts}, want {expected}")
-    return run_launches, runs[0]
+    return run_launches, runs[0], median_ms
 
 
 ENTRY_CONFIG = "pi05_flatten_fold_normal"
@@ -1677,7 +1708,8 @@ def _percentiles(values: list[float]) -> str:
 
 def _serve_entry_once(cfg, ckpt: str, quantize: bool) -> dict:
     """One ``create_trained_policy`` of phase 14 and its checks; returns the launches of the graph the requests
-    replayed, counted at its capture by the first request with every count set to 0 just before."""
+    replayed (``capture``), counted at its capture by the first request with every count set to 0 just before, and
+    the requests, their noise, actions and ``infer_ms`` (phase 23 serves them again)."""
     from kai0_tpu_torch.policies import graphs, policy_config
 
     label = "int8" if quantize else "bf16"
@@ -1796,14 +1828,16 @@ def _serve_entry_once(cfg, ckpt: str, quantize: bool) -> dict:
     _check_replayed_row_quant(prof_replay, quantize, f"entry {label} replay")
     del policy, graph, full_graph
     torch.cuda.empty_cache()
-    return capture
+    return {"capture": capture, "requests": requests, "noise": noise, "actions": outs, "infer_ms": timing["infer_ms"]}
 
 
 RTC_CONFIG = "pi05_rtc_flatten_fold_inference"
-RTC_ROUNDS = 20
+RTC_ROUNDS = 10
+RTC_BUCKETS = [64]  # phase 15's prompt buckets: its requests' (phase 14 serves [64, 128])
+WIRE_REQUESTS = 10  # phase 17: requests, and RTC rounds, over the wire
 RTC_CHUNK = (50, 14)  # the graph key of a chunk of the action horizon whose 14 joints and grippers are guided
 BATCH_SIZES = (1, 2, 4, 8)
-BATCH_REPEATS = 20
+BATCH_REPEATS = 10
 
 
 def _agilex_requests(cfg, rng: np.random.Generator, n: int) -> list[dict]:
@@ -1878,15 +1912,15 @@ def _serve_rtc_once(cfg, ckpt: str, quantize: bool) -> tuple[dict, object, list[
     label = "RTC int8" if quantize else "RTC bf16"
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    policy = policy_config.create_trained_policy(cfg, ckpt, prompt_buckets=ENTRY_BUCKETS, warmup=True, quantize=quantize)
+    policy = policy_config.create_trained_policy(cfg, ckpt, prompt_buckets=RTC_BUCKETS, warmup=True, quantize=quantize)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t
     capture_s = sum(g.capture_seconds for g in policy.graphs.values())
     guided = [g for g in policy.graphs.values() if g.key[-1][0] == "prev_action_chunk"]
-    print(f"{label}: create_trained_policy({RTC_CONFIG!r}, quantize={quantize}, prompt_buckets={ENTRY_BUCKETS}, "
+    print(f"{label}: create_trained_policy({RTC_CONFIG!r}, quantize={quantize}, prompt_buckets={RTC_BUCKETS}, "
           f"warmup=True) in {total_s:.2f}s: {len(policy.graphs)} captures {capture_s:.2f}s (guided: "
           f"{[round(g.capture_seconds, 2) for g in guided]}); peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    _check(len(policy.graphs) == 2 * (len(ENTRY_BUCKETS) + 1) and len(guided) == len(ENTRY_BUCKETS) + 1,
+    _check(len(policy.graphs) == 2 * (len(RTC_BUCKETS) + 1) and len(guided) == len(RTC_BUCKETS) + 1,
            f"{label}: {len(policy.graphs)} graphs after warmup")
 
     rng = np.random.default_rng(16)
@@ -2165,7 +2199,7 @@ def serve_wire(policy, rtc_walls: list[float]) -> None:
         response = conn.getresponse()
         _check((response.status, response.read()) == (200, b"OK\n"), "GET /healthz")
         cfg = train_config.get_config(RTC_CONFIG)
-        requests = _agilex_requests(cfg, np.random.default_rng(19), ENTRY_REQUESTS)
+        requests = _agilex_requests(cfg, np.random.default_rng(19), WIRE_REQUESTS)
         local = _Timed(policy)
         for obs in requests:
             local.infer(obs)
@@ -2186,10 +2220,10 @@ def serve_wire(policy, rtc_walls: list[float]) -> None:
         rtc_sizes = len(msgpack_numpy.packb(rtc_client.make_payload(requests[-1])))
         client.close()
         local_ms = [ms for _, _, ms in local.calls]
-        print(f"wire: {ENTRY_REQUESTS} raw Agilex requests through the port's client and server on 127.0.0.1: wall_ms "
+        print(f"wire: {WIRE_REQUESTS} raw Agilex requests through the port's client and server on 127.0.0.1: wall_ms "
               f"{_percentiles(wire)} against {_percentiles(local_ms)} in process (the same policy and requests); "
-              f"{sizes[0][0]} bytes a request, {sizes[0][1]} a reply; {RTC_ROUNDS} RTC rounds over the wire: rounds "
-              f"1-{RTC_ROUNDS - 1} wall_ms {_percentiles(rtc_wire)} against phase 15's in process {_percentiles(rtc_walls)};"
+              f"{sizes[0][0]} bytes a request, {sizes[0][1]} a reply; {WIRE_REQUESTS} RTC rounds over the wire: rounds "
+              f"1-{WIRE_REQUESTS - 1} wall_ms {_percentiles(rtc_wire)} against phase 15's in process {_percentiles(rtc_walls)};"
               f" {rtc_sizes} bytes a guided request; GET /healthz 200")
     finally:
         stop.set()
@@ -2213,7 +2247,8 @@ def _quantile_stats(width: int = 32) -> dict:
 
 def serve_entry() -> dict:
     """Phases 14-17 on one seeded checkpoint: serving through the entry points a robot operator calls, at full width,
-    bf16 then int8 (14); RTC (15); batched requests (16); the websocket server on this machine (17)."""
+    bf16 then int8 (14), then weight-only and SigLIP + Gemma int8 (23 (d)); RTC (15); batched requests (16); the
+    websocket server on this machine (17)."""
     import tempfile
 
     from kai0_tpu_torch import interop
@@ -2234,8 +2269,10 @@ def serve_entry() -> dict:
         normalize.save(pathlib.Path(ckpt) / "assets" / asset_id, _quantile_stats())
         print(f"entry: seeded bf16 pi05 written to {path.name} ({path.stat().st_size / 1e9:.3f} GB) with synthetic "
               f"quantile norm stats under assets/{asset_id} in {time.perf_counter() - t:.1f}s")
-        for quantize in (False, True):
-            launches["int8" if quantize else "bf16"] = _serve_entry_once(cfg, ckpt, quantize)
+        served = {("int8" if quantize else "bf16"): _serve_entry_once(cfg, ckpt, quantize) for quantize in (False, True)}
+        launches.update({label: rec["capture"] for label, rec in served.items()})
+        launches["int8_modes"] = timed("23 (d) serving int8 modes", serve_int8_modes, cfg, ckpt, served)
+        del served
         rtc_cfg = train_config.get_config(RTC_CONFIG)
         launches["rtc_bf16"], rtc_policy, rtc_walls = _serve_rtc_once(rtc_cfg, ckpt, quantize=False)
         launches["rtc_int8"], int8_policy, _ = _serve_rtc_once(rtc_cfg, ckpt, quantize=True)
@@ -2625,7 +2662,7 @@ def check_advantage_gradients() -> None:
 
 def _evaluate(evaluator, paths, prompt: str, mode: str, batch: int, frames: int) -> dict:
     """One episode through the evaluator in ``mode`` at ``batch``, the counts set to 0 just before: its records and
-    launches, checked (finite values in [-1, 1]; one K1f launch a Gemma layer and one K2f a SigLIP layer a forward)."""
+    launches, checked by ``_evaluated``."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
@@ -2635,15 +2672,20 @@ def _evaluate(evaluator, paths, prompt: str, mode: str, batch: int, frames: int)
                                                                  relative_interval=ADVANTAGE_INTERVAL)
     else:
         results = evaluator.evaluate_video_1timestep_advantage(paths, prompt, batch_size=batch)
-    wall = time.perf_counter() - t
-    launches = _read_launches()
-    timing = evaluator.timing
+    return _evaluated(mode, batch, frames, time.perf_counter() - t, evaluator.timing, _read_launches(),
+                      torch.cuda.max_memory_allocated(), results)
+
+
+def _evaluated(mode: str, batch: int, frames: int, wall: float, timing: dict, launches: dict, peak: int,
+               results: list) -> dict:
+    """An episode's evaluation printed and checked (finite values in [-1, 1]; one K1f launch a Gemma layer and one
+    K2f a SigLIP layer a forward); returns its launches."""
     forwards = len(timing["device_ms"])
     values = np.asarray([[v for k, v in r.items() if not k.endswith("idx")] for r in results], dtype=np.float64)
     print(f"  {mode} at batch {batch}: {frames} frames in {wall:.3f}s = {frames / wall:.3f} frames/s; decode and "
           f"resize {timing['decode_s']:.3f}s; {forwards} forwards, device ms {[round(x, 2) for x in timing['device_ms']]}; "
           f"host assembly ms {[round(x, 2) for x in timing['prep_ms']]}; staging ms "
-          f"{[round(x, 2) for x in timing['stage_ms']]}; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"{[round(x, 2) for x in timing['stage_ms']]}; peak {peak / 2**30:.3f} GiB; "
           f"values in [{values.min():.4f}, {values.max():.4f}]; launches {launches}")
     _check(len(results) == frames and np.isfinite(values).all() and np.abs(values).max() <= 1.0,
            f"{mode}: {len(results)} results, values in [{values.min()}, {values.max()}]")
@@ -2748,7 +2790,22 @@ def stage_advantage() -> dict:
         print(f"  reckoned peak of a forward: {_eval_peak_gib(kai0_batch, n):.3f} GiB at batch {kai0_batch}, "
               f"{_eval_peak_gib(registry['PI06']['batch_size'], n):.3f} GiB at {registry['PI06']['batch_size']}; "
               f"1-timestep mode runs at {pi06_batch}")
-        launches["eval"] = _evaluate(evaluator, paths, prompt, "2timesteps", kai0_batch, ADVANTAGE_FRAMES)
+
+        # (f) annotate every episode (2-timestep, batch 160), the counts set to 0 just before: its first episode's
+        # evaluation, the episode of (e), is (e)'s 2-timestep record.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t = time.perf_counter()
+        keep = lambda args, out: (evaluator.timing, _read_launches(), torch.cuda.max_memory_allocated(), out)  # noqa: E731
+        with _Calls(evaluator, "evaluate_video_2timesteps_advantages", keep=keep) as episodes:
+            written = annotate.annotate_dataset(evaluator, dataset, prompt=prompt, output_tag="KAI0_smoke",
+                                                mode=registry["KAI0"]["mode"], relative_interval=ADVANTAGE_INTERVAL,
+                                                batch_size=kai0_batch)
+        annotate_s = time.perf_counter() - t
+        episode_ms, (timing, first_launches, peak, results) = episodes.rows[0]
+        launches["eval"] = _evaluated("2timesteps", kai0_batch, ADVANTAGE_FRAMES, episode_ms / 1000, timing,
+                                      first_launches, peak, results)
         _evaluate(evaluator, paths, prompt, "1timestep", pi06_batch, ADVANTAGE_FRAMES)
 
         # One batch with the kernels and through the plain attention, and one profiled forward.
@@ -2767,8 +2824,7 @@ def stage_advantage() -> dict:
               f"mean abs {err.mean():.4e} (|values| max {np.abs(plain).max():.4f}, mean {np.abs(plain).mean():.4f})")
         _check(err.max() <= BF16_SAMPLE_TOL["max"] * np.abs(plain).max()
                and err.mean() <= BF16_SAMPLE_TOL["mean"] * np.abs(plain).mean(), "kernels vs plain attention")
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             evaluator._infer_values(*batch)
             torch.cuda.synchronize()
         families, busy_ms, attention = _profile_families(prof)
@@ -2778,12 +2834,7 @@ def stage_advantage() -> dict:
               + "; attention: " + "; ".join(f"{k} {ms:.2f} ms x{c}" for k, (ms, c) in attention.items()))
         del cams, batch
 
-        # (f) annotate every episode, discretize, read the labels back as AWBC prompts
-        t = time.perf_counter()
-        written = annotate.annotate_dataset(evaluator, dataset, prompt=prompt, output_tag="KAI0_smoke",
-                                            mode=registry["KAI0"]["mode"], relative_interval=ADVANTAGE_INTERVAL,
-                                            batch_size=kai0_batch)
-        annotate_s = time.perf_counter() - t
+        # (f) discretize, read the labels back as AWBC prompts
         evaluator.shutdown()
         del evaluator
         torch.cuda.empty_cache()
@@ -3219,11 +3270,12 @@ def serve_fast(root: pathlib.Path) -> dict:
     _seeded_checkpoint(Pi0FAST, cfg, ckpt, seed=22, stats_width=cfg.model.action_dim)
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    policy = policy_config.create_trained_policy(cfg, ckpt, warmup=True)
+    # No warmup: FAST's sampler is eager, so a warmup would only serve one more 256-token request (~8 s).
+    policy = policy_config.create_trained_policy(cfg, ckpt)
     torch.cuda.synchronize()
     _check(isinstance(policy.model, Pi0FAST) and not policy.graphs, "fast serving: not the FAST model, or a graph")
-    print(f"fast serving: create_trained_policy({FAST_CONFIG!r}, warmup=True) in {time.perf_counter() - t:.2f}s "
-          "(warmup serves one example request; no graph: the sampler is eager)")
+    print(f"fast serving: create_trained_policy({FAST_CONFIG!r}) in {time.perf_counter() - t:.2f}s (no graph: the "
+          "sampler is eager)")
     requests = _droid_requests(np.random.default_rng(22), FAST_REQUESTS)
     walls, infer_ms, launches = [], [], []
     for obs in requests:
@@ -3321,14 +3373,23 @@ def train_pi0_and_fast(root: pathlib.Path) -> dict:
     os.environ["WANDB_MODE"] = "disabled"  # the loop's MetricsLogger uses wandb when it imports; no network here
     fast = dataclasses.replace(train_config.get_config(FAST_TRAIN_CONFIG), data=train_config.FakeDataConfig(),
                                weight_loader=weight_loaders.NoOpWeightLoader())
+    from kai0_tpu_torch.training import checkpoints
+
     launches = {}
     for label, base in (("pi0", train_config.get_config("pi0_base")), ("fast", fast)):
-        config = _train_entry_config(base, str(root / f"train_{label}"), num_train_steps=PHASE20_TRAIN_STEPS)
+        # Fake data read in a thread: the spawn workers' start-up is phases 18, 19 and 22's to measure.
+        config = _train_entry_config(base, str(root / f"train_{label}"), num_train_steps=PHASE20_TRAIN_STEPS,
+                                     num_workers=0)
         _reset_launches()
         recorder = _StepRecorder(f"{label} train", TRAIN_BATCH, TRAIN_STEP_LAUNCHES)
         t = time.perf_counter()
         recorder.start()
-        model, state = train_lib.main(config, on_step=recorder)
+        saved = checkpoints.save_state  # the last step's save left out (6-8 s each): phase 18 holds saves
+        checkpoints.save_state = lambda *args, **kwargs: 0
+        try:
+            model, state = train_lib.main(config, on_step=recorder)
+        finally:
+            checkpoints.save_state = saved
         walls = [r["wall_ms"] for r in recorder.rows[1:]]
         launches[label] = _read_launches()
         print(f"  {label} train ({base.name}'s model, {type(model).__name__}): {time.perf_counter() - t:.1f}s in all; "
@@ -3368,7 +3429,7 @@ ARITH_CONFIG = "pi05_base"
 ARITH_CHECKPOINTS = 3
 ARITH_PERTURBATION = 0.01  # x each leaf's std: the checkpoints stand for fine-tunes of one base, which kai0 mixes
 ARITH_BATCHES, ARITH_BATCH = 4, 8
-ARITH_GD_ITERATIONS = 5
+ARITH_GD_ITERATIONS = 3
 ARITH_SAMPLED_KEYS = 64
 # The mixed model.safetensors is bf16: each mixed weight is rounded once more, by at most 2^-9 of itself, where the
 # ensemble keeps its f32 mix. The weights the model casts to bf16 for its products move only where that rounding
@@ -3827,6 +3888,352 @@ def train_deploy_alignment() -> dict:
     return launches
 
 
+SB_STEPS = 4  # phase 23 (a): SwitchBack full fine-tune steps, then one profiled step
+SB_LOSS_RTOL, SB_GRAD_COSINE = 0.05, 0.98  # step 0 against the bf16 step: JAX's bars, tests/test_quant.py:566-573
+SIGLIP_SHAPES = {"attn": (1152, 1152), "fc1": (1152, 4304), "fc2": (4304, 1152), "head": (1152, 2048)}  # (K, N)
+SIGLIP_ROWS = {"train": TRAIN_BATCH * 3 * 256, "serve": 3 * 256}
+INT8_MODES_REQUESTS = 10
+
+
+def _sb_step_launches(batch: int, gemma: str = "ffn", siglip: str = "0") -> dict:
+    """Launches of K5 and K4b in one full fine-tune step with SwitchBack at the selected sites, worked out from the
+    code (``ops/quant.py``).
+
+    Gemma, per expert and forward (run twice: once, and again as the
+    backward's recompute): ``ffn``, the fused op: K5 on the 3 weights (their
+    per-call codes), then per row chunk K5 on x and on act and 3 K4b (gate,
+    up, down); ``attn``: q, the joint kv and out each K5 on the weight and on
+    x and one K4b. Backward, per expert: ``ffn``, per chunk K5 on x and 2 K4b
+    (gate and up re-derived) and the three ``dx`` (K5 with the column scale
+    and K4b each; the codes are saved, not made again); ``attn``, the three
+    ``dx``. The prefix expert's last layer reaches the loss only through its
+    K and V: its backward is the kv and q ``dx`` (phase 13's account). SigLIP
+    (27 layers, recomputed as Gemma's blocks; the head once): per layer q, k,
+    v, out (``attn``) and fc1, fc2 (``mlp``) each K5 twice and one K4b
+    forward and one ``dx`` backward, down to layer 0 (the patch embedding
+    trains); the head (``head``) the same.
+    """
+    from kai0_tpu_torch.ops import quant
+
+    on = {site: quant.switchback_on(gemma, site) for site in ("attn", "ffn")}
+    vit = {site: quant.switchback_on(siglip, site) for site in ("attn", "mlp", "head")}
+    pre, suf = (len(quant._row_chunks(batch * rows, mlp_dim)) for rows, mlp_dim in ((968, 16384), (50, 4096)))
+    ffn, attn, depth, vit_depth = on["ffn"], on["attn"], 18, 27
+    fwd = {"row_quant": ffn * (6 + 2 * (pre + suf)) + attn * 12, "row_quant_colscale": 0,
+           "int8_matmul": ffn * 3 * (pre + suf) + attn * 6}
+    bwd = {"row_quant": ffn * 4 * (pre + suf) + attn * 6, "row_quant_colscale": ffn * 3 * (pre + suf) + attn * 6,
+           "int8_matmul": ffn * 5 * (pre + suf) + attn * 6}
+    last = {"row_quant": ffn * 4 * suf + attn * 5, "row_quant_colscale": ffn * 3 * suf + attn * 5,
+            "int8_matmul": ffn * 5 * suf + attn * 5}
+    sites = 4 * vit["attn"] + 2 * vit["mlp"]
+    out = {k: 2 * depth * fwd[k] + (depth - 1) * bwd[k] + last[k] for k in fwd}
+    out["row_quant"] += vit_depth * (2 * 2 * sites + sites) + vit["head"] * 3
+    out["row_quant_colscale"] += vit_depth * sites + vit["head"]
+    out["int8_matmul"] += vit_depth * (2 * sites + sites) + vit["head"] * 2
+    return {**out, "int8_matmul_lora": 0}
+
+
+def _grad_cosine(a: dict, b: dict) -> float:
+    """Cosine of two gradients over every parameter (a missing gradient counts as zeros), summed in f64."""
+    dot = na = nb = 0.0
+    for k in a.keys() | b.keys():
+        x, y = a.get(k), b.get(k)
+        if x is not None:
+            na += float(x.float().square().sum(dtype=torch.float64))
+        if y is not None:
+            nb += float(y.float().square().sum(dtype=torch.float64))
+        if x is not None and y is not None:
+            dot += float((x.float() * y.float()).sum(dtype=torch.float64))
+    return dot / max(np.sqrt(na * nb), 1e-30)
+
+
+def _step0_loss_and_grads(model, batch, seed: int) -> tuple[float, dict]:
+    """Loss and gradients of ``train_step``'s step 0 (its draws: ``step_generator(seed, 0)``), no update."""
+    from kai0_tpu_torch.training import optimizer
+
+    obs, actions = batch
+    model.zero_grad(set_to_none=True)
+    loss = model.compute_loss(obs, actions, train=True, generator=optimizer.step_generator(seed, 0, device="cuda"))
+    loss = loss.mean()
+    loss.backward()
+    grads = {k: p.grad for k, p in model.named_parameters() if p.requires_grad}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def switchback_training(phase9: dict) -> dict:
+    """Phase 23 (a)-(c): the SwitchBack full fine-tune (``int8_sb_gemma=ffn``, the JAX package's full fine-tune
+    default) and every SwitchBack site, against the bf16 step of phase 9; the fused SwitchBack FFN and SigLIP's
+    int8 shapes against their plain versions."""
+    from kai0_tpu_torch import knobs
+    from kai0_tpu_torch.models.pi0 import Pi0, Pi0Config
+    from kai0_tpu_torch.ops import quant
+    from kai0_tpu_torch.training import optimizer, train_lib
+
+    config = Pi0Config(pi05=True)
+    base = train_lib.TrainConfig(optimizer=optimizer.AdamW(state_dtype="int8"), param_dtype="bfloat16", ema_decay=None)
+    batches = [_train_batch(100 + i, TRAIN_BATCH) for i in range(SB_STEPS + 1)]  # phase 9's batches
+
+    def fresh():  # phase 9's model and seed
+        model = Pi0(config, device="cuda", param_dtype=torch.bfloat16)
+        return model.init_weights(torch.Generator(device="cuda").manual_seed(9))
+
+    def against_bf16(label, model, want_layers):
+        loss, grads = _step0_loss_and_grads(model, batches[0], base.seed)
+        cosine = _grad_cosine(grads, bf16_grads)
+        del grads
+        rel = abs(loss - phase9["loss0"]) / abs(phase9["loss0"])
+        layers = sum(quant.is_switchback(m) for m in model.modules())
+        print(f"switchback {label}: {layers} SwitchBack layers; step 0 loss {loss:.6f} against phase 9's "
+              f"{phase9['loss0']:.6f} (rel {rel:.4e}, limit {SB_LOSS_RTOL}); gradient cosine to the bf16 step's "
+              f"{cosine:.6f} (limit > {SB_GRAD_COSINE})")
+        _check(layers == want_layers, f"switchback {label}: {layers} SwitchBack layers, want {want_layers}")
+        _check(rel < SB_LOSS_RTOL and cosine > SB_GRAD_COSINE, f"switchback {label}: loss rel {rel}, cosine {cosine}")
+        return {"loss0": loss, "loss_rel": rel, "cosine": cosine}
+
+    # The bf16 step-0 gradient of phase 9's model; (b) first, so that this gradient is gone before (a)'s timed steps.
+    model = fresh()
+    bf16_loss, bf16_grads = _step0_loss_and_grads(model, batches[0], base.seed)
+    print(f"switchback: the bf16 step 0 on phase 9's seed and batch: loss {bf16_loss:.6f} (phase 9's "
+          f"{phase9['loss0']:.6f}, {'bit-equal' if bf16_loss == phase9['loss0'] else 'differs'})")
+
+    # (b) every SwitchBack site: Gemma's attention and FFN, SigLIP's attention, MLP and head; one step.
+    all_config = dataclasses.replace(base, knobs=knobs.Knobs(int8_sb_gemma="all", int8_switchback="all"))
+    state = train_lib.init_train_state(model, all_config)
+    record = {"all": against_bf16("all sites", model, 2 * 18 * 7 + 27 * 6 + 1)}
+    want = {**TRAIN_STEP_LAUNCHES, **_sb_step_launches(TRAIN_BATCH, "all", "all")}
+    before = _read_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, info = train_lib.train_step(model, state, batches[0], all_config)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1000
+    launches = {k: v - before[k] for k, v in _read_launches().items()}
+    print(f"  switchback all sites, one step: wall_ms={wall_ms:.2f} loss={float(info['loss']):.6f} "
+          f"grad_norm={float(info['grad_norm']):.6f} launches={launches}")
+    _check(launches == want and float(info["loss"]) == record["all"]["loss0"],
+           f"switchback all sites: launches {launches}, want {want}")
+    record["all"].update(wall_ms=wall_ms, launches=launches)
+    del model, state
+    torch.cuda.empty_cache()
+
+    # (a) phase 9's model with SwitchBack on the Gemma FFN (the JAX package's full fine-tune default), 4 steps.
+    model = fresh()
+    sb_config = dataclasses.replace(base, knobs=knobs.Knobs(int8_sb_gemma="ffn"))
+    state = train_lib.init_train_state(model, sb_config)
+    record["ffn"] = against_bf16("ffn (full fine-tune)", model, 2 * 18 * 3)
+    del bf16_grads
+    want = {**TRAIN_STEP_LAUNCHES, **_sb_step_launches(TRAIN_BATCH, "ffn")}
+    walls, step_launches = [], None
+    for step, batch in enumerate(batches):
+        profile = step == SB_STEPS
+        before = _read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if profile:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                state, info = train_lib.train_step(model, state, batch, sb_config)
+                torch.cuda.synchronize()
+        else:
+            state, info = train_lib.train_step(model, state, batch, sb_config)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1000
+        launches = {k: v - before[k] for k, v in _read_launches().items()}
+        loss, grad_norm = float(info["loss"]), float(info["grad_norm"])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  switchback ffn step {step}{' (profiled)' if profile else ''}: wall_ms={wall_ms:.2f} samples_per_s="
+              f"{TRAIN_BATCH / wall_ms * 1000:.3f} loss={loss:.6f} grad_norm={grad_norm:.6f} peak_mem_gib={peak:.3f} "
+              f"launches={launches}")
+        _check(np.isfinite(loss) and np.isfinite(grad_norm) and grad_norm > 0, f"switchback step {step}: {loss}")
+        _check(launches == want, f"switchback step {step}: launches {launches}, want {want}")
+        if step == 0:
+            _check(loss == record["ffn"]["loss0"], f"switchback step 0: train_step's loss {loss} differs from the "
+                   f"same draws' {record['ffn']['loss0']}")
+            step_launches = launches
+        if 1 <= step < SB_STEPS:
+            walls.append(wall_ms)
+    median = statistics.median(walls)
+    families, busy_ms, _ = _profile_families(prof)
+    print(f"switchback ffn: median wall_ms over steps 1-{SB_STEPS - 1} = {median:.2f} ({TRAIN_BATCH / median * 1000:.3f} "
+          f"samples/s) against phase 9's bf16 {phase9['median_ms']:.2f} ({TRAIN_BATCH / phase9['median_ms'] * 1000:.3f} "
+          f"samples/s), same call; peak {peak:.3f} GiB; profiled step: {busy_ms:.2f} ms of device time: " + "; ".join(
+              f"{fam} {ms:.2f} ms x{count}" for fam, (ms, count) in sorted(families.items(), key=lambda kv: -kv[1][0])))
+    counts = _check_int8_orientations(_kernels_named(prof, "int8_mm"), "switchback ffn step")
+    record["ffn"].update(median_ms=median, peak_gib=peak, launches=step_launches, families=families)
+    del model, state
+    torch.cuda.empty_cache()
+    record["kernels"] = check_switchback_kernels()
+    record["orientations"] = counts
+    return record
+
+
+def _with_plain_kernels(fn):
+    """``fn()`` with ``ops.quant`` calling K5's and K4b's plain versions (on the card) in place of the kernels."""
+    from kai0_tpu_torch.ops import int8_matmul as mm
+    from kai0_tpu_torch.ops import quant
+    from kai0_tpu_torch.ops import row_quant as rq
+
+    saved = quant.row_quant, quant.int8_matmul
+    quant.row_quant, quant.int8_matmul = rq.row_quant_plain, mm.int8_matmul_plain
+    try:
+        return fn()
+    finally:
+        quant.row_quant, quant.int8_matmul = saved
+
+
+def check_switchback_kernels() -> dict:
+    """Phase 23 (c): the fused SwitchBack FFN op at full width (one chunk of 7,744 rows, D 2048, F 16384) through
+    K5 and K4b and through their plain versions, on the card; K5 and K4b at SigLIP's shapes against their plain
+    versions, timed beside the bound."""
+    from kai0_tpu_torch.ops import int8_matmul as mm
+    from kai0_tpu_torch.ops import quant
+    from kai0_tpu_torch.ops import row_quant as rq
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    bf16 = torch.bfloat16
+    m, d, f = INT8_CHUNK_ROWS, 2048, 16384
+    _check(len(quant._row_chunks(m, f)) == 1, "the chunk of 7,744 rows is not one chunk")
+    x = torch.randn(m, d, generator=gen, device="cuda").to(bf16)
+    dy = torch.randn(m, d, generator=gen, device="cuda").to(bf16)
+    weights = [(torch.randn(*shape, generator=gen, device="cuda") * 0.02).to(bf16) for shape in ((f, d), (f, d), (d, f))]
+
+    def run():
+        xs = x.clone().requires_grad_()
+        ws = [w.clone().requires_grad_() for w in weights]
+        y = quant.sb_fused_ffn(xs, *ws)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        return y.detach(), xs.grad, [w.grad for w in ws]
+
+    t = time.perf_counter()
+    y, dx, dws = run()
+    kernel_s = time.perf_counter() - t
+    y_p, dx_p, dws_p = _with_plain_kernels(run)
+    _check(torch.equal(y, y_p) and torch.equal(dx, dx_p), "the fused SwitchBack FFN: forward or dx differs from the "
+           "plain versions'")
+    worst = max(float((a.float() - b.float()).abs().max() / b.float().abs().max()) for a, b in zip(dws, dws_p))
+    print(f"switchback fused FFN [{m}, {d}] x F {f} bf16: forward and dx bit-equal with K5 and K4b and with their plain "
+          f"versions on the card; dW of gate, up, down within {worst:.3e} x max (limit one bf16 step, 2^-8); the "
+          f"kernels' forward + backward {kernel_s * 1000:.1f} ms (first call)")
+    _check(worst <= 2.0**-8, f"the fused SwitchBack FFN's weight gradients: {worst}")
+    del y, dx, dws, y_p, dx_p, dws_p
+
+    shapes = {}
+    for label, rows in SIGLIP_ROWS.items():
+        for site, (k, n) in SIGLIP_SHAPES.items():
+            shapes[f"{site} M={rows}"] = (rows, k, n)
+    for site, (k, n) in {"gate/up": (2048, 16384), "down": (16384, 2048)}.items():
+        shapes[f"weight codes {site}"] = (None, k, n)
+    record = {}
+    for label, (rows, k, n) in shapes.items():
+        w = (torch.randn(n, k, generator=gen, device="cuda") * 0.02).to(bf16)
+        wq, ws = rq.row_quant(w)
+        ref_q, ref_s = rq.row_quant_plain(w)
+        _check(torch.equal(wq, ref_q) and torch.equal(ws, ref_s), f"row_quant of the weight [{n},{k}]: not bit-equal")
+        if rows is None:  # a weight's per-call codes
+            ms, plain_ms = _cuda_ms(lambda: rq.row_quant(w), runs=10), _cuda_ms(lambda: rq.row_quant_plain(w), runs=10)
+            bound_ms = _nbytes(w, wq, ws) / HBM_BYTES_PER_S * 1e3
+            print(f"kernel row_quant of a weight [{n},{k}] bf16 ({label}): bit-equal; kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} (bytes)")
+            record[label] = {"row_quant": (ms, plain_ms, bound_ms)}
+            continue
+        a = (torch.randn(rows, k, generator=gen, device="cuda") * 3).to(bf16)
+        aq, sa = rq.row_quant(a)
+        ref_q, ref_s = rq.row_quant_plain(a)
+        _check(torch.equal(aq, ref_q) and torch.equal(sa, ref_s), f"row_quant [{rows},{k}]: not bit-equal")
+        y = mm.int8_matmul(aq, wq, sa, ws.view(-1), nt=True, out_dtype=bf16)
+        y_p = mm.int8_matmul_plain(aq, wq, sa, ws.view(-1), nt=True, out_dtype=bf16)
+        g = (torch.randn(rows, n, generator=gen, device="cuda")).to(bf16)
+        gq, sg = rq.row_quant(g, col_scale=ws.view(-1))
+        dx = mm.int8_matmul(gq, wq, sg, None, nt=False, out_dtype=bf16)
+        dx_p = mm.int8_matmul_plain(gq, wq, sg, None, nt=False, out_dtype=bf16)
+        torch.cuda.synchronize()
+        _check(torch.equal(y, y_p) and torch.equal(dx, dx_p), f"int8_matmul at SigLIP's {label}: not bit-equal")
+        ms = _cuda_ms(lambda: mm.int8_matmul(aq, wq, sa, ws.view(-1), nt=True, out_dtype=bf16), runs=10)
+        plain_ms = _cuda_ms(lambda: mm.int8_matmul_plain(aq, wq, sa, ws.view(-1), nt=True, out_dtype=bf16), runs=3)
+        bound_ms, bound_by = _int8_bound(rows, n, k, _nbytes(aq, wq, sa, ws, y))
+        rq_ms = _cuda_ms(lambda: rq.row_quant(a), runs=10)
+        rq_bound = _nbytes(a, aq, sa) / HBM_BYTES_PER_S * 1e3
+        print(f"kernel int8_matmul at SigLIP's {label} (K={k}, N={n}, nt and the dx): bit-equal; kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}); row_quant [{rows},{k}] "
+              f"kernel_ms={rq_ms:.4f} bound_ms={rq_bound:.4f} (bytes)")
+        record[label] = {"int8_matmul": (ms, plain_ms, bound_ms), "row_quant": (rq_ms, None, rq_bound)}
+    return record
+
+
+def _serve_int8_mode(cfg, ckpt: str, label: str, knob_values: dict, requests: list, noise) -> dict:
+    """One ``create_trained_policy(quantize=True)`` with the config's knobs set; ``INT8_MODES_REQUESTS`` requests,
+    the first capturing the graph with the counts at 0 just before. Returns the capture's launches, the actions and
+    the times."""
+    from kai0_tpu_torch import knobs
+    from kai0_tpu_torch.ops import quant
+    from kai0_tpu_torch.policies import policy_config
+
+    cfg = dataclasses.replace(cfg, knobs=knobs.Knobs(**knob_values))
+    t = time.perf_counter()
+    policy = policy_config.create_trained_policy(cfg, ckpt, prompt_buckets=ENTRY_BUCKETS, quantize=True)
+    torch.cuda.synchronize()
+    holders = [m for m in policy.model.modules() if quant.is_quant(m)]
+    load_s = time.perf_counter() - t
+    _reset_launches()
+    walls, infer_ms, actions = [], [], []
+    for obs in requests:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = policy.infer(obs, noise=noise)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1000)
+        infer_ms.append(out["policy_timing"]["infer_ms"])
+        a = out["actions"]
+        _check(a.shape == (50, 14) and np.isfinite(a).all(), f"{label}: actions {a.shape}")
+        actions.append(a)
+    (graph,) = policy.graphs.values()
+    capture = {k: v for k, v in graph.capture_launches.items() if v}
+    served = {k: v for k, v in _read_launches().items() if v}
+    _check(served == {k: 2 * v for k, v in capture.items()}, f"{label}: launches {served}, capture {capture}")
+    print(f"int8 modes {label}: create_trained_policy(quantize=True, knobs={knob_values}) in {load_s:.2f}s, "
+          f"{len(holders)} int8 holders (weight-only: {sum(m.weight_only for m in holders)}); {len(requests)} raw "
+          f"Agilex requests, the first capturing its graph: wall_ms {_percentiles(walls[1:])}, infer_ms "
+          f"{_percentiles(infer_ms[1:])} (requests 1-{len(requests) - 1}); launches of the capture {capture}")
+    del policy
+    torch.cuda.empty_cache()
+    return {"capture": capture, "actions": actions, "walls": walls, "infer_ms": infer_ms, "holders": len(holders)}
+
+
+def serve_int8_modes(cfg, ckpt: str, entry: dict) -> dict:
+    """Phase 23 (d): weight-only int8 and SigLIP + Gemma int8 through ``create_trained_policy`` on phase 14's
+    checkpoint and requests, against phase 14's bf16 and int8 policies of this call."""
+    requests, noise = entry["bf16"]["requests"][:INT8_MODES_REQUESTS], entry["bf16"]["noise"]
+    modes = {"weight-only": {"int8_weight_only": True}, "siglip + gemma": {"int8_siglip": "all"}}
+    out = {label: _serve_int8_mode(cfg, ckpt, label, values, requests, noise) for label, values in modes.items()}
+    bf16, int8 = entry["bf16"], entry["int8"]
+    gemma_only = int8["capture"]
+    wo, sig = out["weight-only"]["capture"], out["siglip + gemma"]["capture"]
+    _check(not any(wo.get(k) for k in ("row_quant", "row_quant_colscale", "int8_matmul", "int8_matmul_lora")),
+           f"weight-only: K5 or K4b launched in the forward: {wo}")
+    extra = 27 * 6 + 1  # SigLIP's q, k, v, out, fc1, fc2 in 27 layers and the head: K5 on x and one K4b each
+    _check(sig.get("row_quant") == gemma_only["row_quant"] + extra and sig.get("int8_matmul") == gemma_only["int8_matmul"]
+           + extra, f"siglip + gemma int8: launches {sig} against Gemma-only int8's {gemma_only}")
+    for label, rec in out.items():
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(rec["actions"], bf16["actions"], strict=False))
+        ref = float(np.abs(bf16["actions"][0]).max())
+        print(f"int8 modes {label}: actions against phase 14's bf16 policy on the same requests and noise: "
+              f"max_abs_diff={diff:.4e} (|actions| max {ref:.3f}; int8 serving bound 0.5 x max, phase 11)")
+        _check(0 < diff < 0.5 * ref, f"{label}: actions against bf16 {diff}")
+    print("int8 modes: infer_ms p50 / p90 (requests 1-), same call: " + "; ".join(
+        f"{label} {np.percentile(r['infer_ms'][1:], 50):.2f} / {np.percentile(r['infer_ms'][1:], 90):.2f}"
+        for label, r in (("bf16 (phase 14)", bf16), ("gemma int8 (phase 14)", int8), *out.items())))
+    return {label: rec["capture"] for label, rec in out.items()}
+
+
+def timed(label: str, fn, *args):
+    start = time.perf_counter()
+    out = fn(*args)
+    print(f"phase time: {label} {time.perf_counter() - start:.1f}s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is false; the port runs only on a CUDA card", file=sys.stderr)
@@ -3855,12 +4262,6 @@ def main() -> int:
             _check(not any(k in function for k in SPILL_FREE_KERNELS) or " 0 bytes spill stores" in line
                    or "spill" not in line, f"the tensor-core kernel {function} spills registers: {line.strip()}")
 
-    def timed(label: str, fn, *args):
-        start = time.perf_counter()
-        out = fn(*args)
-        print(f"phase time: {label} {time.perf_counter() - start:.1f}s")
-        return out
-
     timed("3 kernels", check_kernels)
     rtc_record = timed("3 rtc backward", check_rtc_backward)
     serve_launches, served = timed("4 serve", serve)
@@ -3873,8 +4274,10 @@ def main() -> int:
     record["flash_mha_bwd"].update(rtc_record["flash_mha_bwd"])
     timed("8 model gradients", check_model_gradients)
     timed("12 lora int8 gradients", check_lora_int8_gradients)
-    launches, _ = timed("9 train", train, "full")
-    int8_launches, _ = timed("13 train lora int8", train, "lora_int8")
+    launches, phase9_losses, phase9_ms = timed("9 train", train, "full")
+    int8_launches, _, _ = timed("13 train lora int8", train, "lora_int8")
+    switchback = timed("23 (a)-(c) switchback training", switchback_training,
+                       {"loss0": phase9_losses[0], "median_ms": phase9_ms})
     entry_launches = timed("14-17 serve entry", serve_entry)
     train_entry_launches = timed("18 train entry", train_entry)
     advantage_launches = timed("19 stage advantage", stage_advantage)
@@ -3952,7 +4355,7 @@ def main() -> int:
                     "flash_mha_bwd", "flash_mhsa_bwd", "adam_q8")):
                 _check(families[path].get(name, 0) > 0, f"{name} was not launched by phase 20's {path}")
                 entry[f"launches_{path}"] = families[path][name]
-        # launches_arithmetic: phase 21's mixing script (gradient descent, 5 iterations of 4 batches of 8), counted from
+        # launches_arithmetic: phase 21's mixing script (gradient descent, 3 iterations of 4 batches of 8), counted from
         # 0 set just before; launches_arithmetic_gd_iteration / _loss: one iteration and one loss evaluation of its
         # Ensemble (K3, K4 and K5 none: the path has no optimizer step and no int8).
         if name.startswith("flash_"):
@@ -3965,6 +4368,14 @@ def main() -> int:
         if name in ("flash_mha", "flash_mha_bwd", "flash_mhsa", "flash_mhsa_bwd", "adam_q8"):
             _check(aligned_launches[name] > 0, f"{name} was not launched by phase 22's training")
         entry["launches_aligned_train"] = aligned_launches[name]
+        # launches_sb_train: one step of phase 23 (a)'s SwitchBack full fine-tune; launches_serving_siglip_int8: the
+        # capture of phase 23 (d)'s SigLIP + Gemma int8 request; each counted from 0 set just before.
+        if name in ("row_quant", "row_quant_colscale", "int8_matmul"):
+            entry["launches_sb_train"] = switchback["ffn"]["launches"][name]
+            entry["launches_serving_siglip_int8"] = entry_launches["int8_modes"]["siglip + gemma"].get(name, 0)
+            _check(entry["launches_sb_train"] > 0, f"{name} was not launched by the SwitchBack full fine-tune")
+            _check(name == "row_quant_colscale" or entry["launches_serving_siglip_int8"] > 0,
+                   f"{name} was not launched by SigLIP + Gemma int8 serving")
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -54,7 +54,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from kai0_tpu_torch.param_paths import EXPERT_ROOTS, LAYER_LEAVES, LLM, LORA_TAILS, PG, jax_param_path
+from kai0_tpu_torch.param_paths import (
+    EXPERT_ROOTS, IMG, LAYER_LEAVES, LLM, LORA_TAILS, PG, VIT, VIT_LAYER_LEAVES, VIT_LEAVES, jax_param_path,
+)
 from kai0_tpu_torch.shared import normalize as _normalize
 
 logger = logging.getLogger("kai0_tpu_torch")
@@ -89,37 +91,16 @@ def lora_state_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]
     return state
 
 
-_VIT = f"{PG}.vision_tower.vision_model."
-_IMG = "PaliGemma/img"
-_VIT_LEAVES = {  # the port's tail under the tower -> (JAX leaf, stacked over layers)
-    "embeddings.patch_embedding.weight": "embedding/kernel",
-    "embeddings.patch_embedding.bias": "embedding/bias",
-    "embeddings.position_embedding.weight": "pos_embedding",
-    "post_layernorm.weight": "Transformer/encoder_norm/scale",
-    "post_layernorm.bias": "Transformer/encoder_norm/bias",
-}
-_VIT_LAYER_LEAVES = {
-    "layer_norm1.weight": "LayerNorm_0/scale", "layer_norm1.bias": "LayerNorm_0/bias",
-    "layer_norm2.weight": "LayerNorm_1/scale", "layer_norm2.bias": "LayerNorm_1/bias",
-    **{f"self_attn.{p[0]}_proj.{leaf}": f"MultiHeadDotProductAttention_0/{p}/{jax_leaf}"
-       for p in ("query", "key", "value") for leaf, jax_leaf in (("weight", "kernel"), ("bias", "bias"))},
-    "self_attn.out_proj.weight": "MultiHeadDotProductAttention_0/out/kernel",
-    "self_attn.out_proj.bias": "MultiHeadDotProductAttention_0/out/bias",
-    "mlp.fc1.weight": "MlpBlock_0/Dense_0/kernel", "mlp.fc1.bias": "MlpBlock_0/Dense_0/bias",
-    "mlp.fc2.weight": "MlpBlock_0/Dense_1/kernel", "mlp.fc2.bias": "MlpBlock_0/Dense_1/bias",
-}
-
-
 def _vit_value(flat: Mapping[str, np.ndarray], tail: str) -> np.ndarray:
     """A SigLIP tower parameter (``tail`` under ``vision_tower.vision_model``) from the JAX tree."""
-    if tail in _VIT_LEAVES:
-        value = np.asarray(flat[f"{_IMG}/{_VIT_LEAVES[tail]}"])
+    if tail in VIT_LEAVES:
+        value = np.asarray(flat[f"{IMG}/{VIT_LEAVES[tail]}"])
         if tail == "embeddings.patch_embedding.weight":
             return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         return value[0] if tail == "embeddings.position_embedding.weight" else value
     m = re.fullmatch(r"encoder\.layers\.(\d+)\.(.+)", tail)
     i, leaf = int(m.group(1)), m.group(2)
-    value = np.asarray(flat[f"{_IMG}/Transformer/encoderblock/{_VIT_LAYER_LEAVES[leaf]}"][i])
+    value = np.asarray(flat[f"{IMG}/Transformer/encoderblock/{VIT_LAYER_LEAVES[leaf]}"][i])
     if leaf.startswith("self_attn.out_proj.weight"):
         return value.reshape(-1, value.shape[-1]).T  # [N, h, D] -> [D, N·h]
     if leaf.startswith("self_attn.") and leaf.endswith(".weight"):
@@ -160,17 +141,14 @@ def state_from_jax(flat: Mapping[str, np.ndarray], model: nn.Module) -> dict[str
     """
     state = {}
     for name in model.state_dict():
-        if name.startswith(_VIT):
-            state[name] = _vit_value(flat, name[len(_VIT):])
+        if name.startswith(VIT):
+            state[name] = _vit_value(flat, name[len(VIT):])
             continue
         root = next((r for r, _ in EXPERT_ROOTS if name.startswith(r + ".")), None)
         if root is not None:
             state[name] = _gemma_value(flat, name, name[len(root) + 1:])
             continue
-        path = jax_param_path(name)
-        if name.startswith(f"{PG}.multi_modal_projector.linear."):
-            path = f"{_IMG}/head/{'kernel' if name.endswith('weight') else 'bias'}"
-        value = np.asarray(flat[path])
+        value = np.asarray(flat[jax_param_path(name)])
         state[name] = value.T if name.endswith(".weight") else value
     return {k: np.ascontiguousarray(v) for k, v in state.items()}
 

@@ -3,7 +3,8 @@
 Counterpart of ``kai0_tpu/models/gemma.py:182-427``; the projections and the
 gated FFN go through ``kai0_tpu_torch.models.lora``, which adds the LoRA terms of
 the ``*_lora`` variants and dispatches on whether a base weight is a
-``nn.Linear`` or a frozen int8 ``QuantLinear``. Each expert is a ``GemmaModel`` in the
+``nn.Linear``, a frozen int8 ``QuantLinear`` or a ``SwitchBackLinear`` (K and V
+then run as one product, as JAX's stacked ``kv_einsum``). Each expert is a ``GemmaModel`` in the
 HF layout the ``PI0Pytorch`` state dict uses (``layers.{i}.self_attn.q_proj``,
 ``mlp.gate_proj``, ``input_layernorm``, ``norm``; the PaliGemma expert also owns
 ``embed_tokens``). ``apply`` runs layer i of every expert together: tokens of
@@ -34,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from kai0_tpu_torch.models import lora as _lora
 from kai0_tpu_torch.ops import attention as _attention
 from kai0_tpu_torch.ops import masks as _masks
+from kai0_tpu_torch.ops import quant as _quant
 
 PALIGEMMA_VOCAB_SIZE = 257_152
 
@@ -189,6 +191,9 @@ def project_qkv(attn: Attention, x: torch.Tensor) -> tuple[torch.Tensor, torch.T
     q = _lora.linear(x, attn.q_proj).view(b, t, c.num_heads, c.head_dim)
     if hasattr(attn, "kv_proj"):  # frozen int8: K and V are one quantized matrix, as JAX's stacked kv_einsum leaf
         k, v = _lora.linear(x, attn.kv_proj).view(b, t, 2, c.num_kv_heads, c.head_dim).unbind(dim=2)
+    elif _quant.is_switchback(attn.k_proj):  # SwitchBack: one product over [K | V], as JAX's kv_einsum
+        k, v = _quant.switchback_joint(x, (attn.k_proj, attn.v_proj)).view(
+            b, t, 2, c.num_kv_heads, c.head_dim).unbind(dim=2)
     else:
         k, v = (_lora.linear(x, p).view(b, t, c.num_kv_heads, c.head_dim) for p in (attn.k_proj, attn.v_proj))
     q = _lora.apply_einsum(q, "BTD,NDH->BTNH", x, *attn.lora("q"), c.lora_attn)

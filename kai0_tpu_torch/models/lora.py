@@ -9,8 +9,10 @@ projection; the FFN's are ``[2, D, r]`` / ``[2, r, F]`` (gate, up) and
 ``[F, r]`` / ``[r, D]`` (down). The reference quirk is kept: the FFN terms
 carry **no** alpha/rank scaling, the einsum terms do.
 
-The base weights are ``nn.Linear`` layers (``[out, in]``) or, frozen and
-quantized, ``QuantLinear`` holders; each projection dispatches on which it is.
+The base weights are ``nn.Linear`` layers (``[out, in]``), frozen int8
+``QuantLinear`` holders, or ``SwitchBackLinear`` layers (int8 products over
+weights that train); each projection dispatches on which it is
+(``ops/quant.product``), and a LoRA term is added after the base product.
 """
 
 from __future__ import annotations
@@ -78,10 +80,8 @@ def _letters(eqn: str) -> str:
 
 
 def linear(x: torch.Tensor, layer: nn.Linear | _quant.QuantLinear) -> torch.Tensor:
-    """``x [..., in] -> [..., out]`` in x's dtype: a quantized product for a ``QuantLinear``, else ``x @ Wᵀ``."""
-    if _quant.is_quant(layer):
-        return _quant.linear(x, layer)
-    return x @ layer.weight.to(x.dtype).T
+    """``x [..., in] -> [..., out]`` in x's dtype, by the layer's route (``ops.quant.product``)."""
+    return _quant.product(x, layer)
 
 
 def apply_einsum(base: torch.Tensor, eqn: str, x: torch.Tensor, lora_a, lora_b, config: LoRAConfig | None):
@@ -101,12 +101,14 @@ def apply_einsum(base: torch.Tensor, eqn: str, x: torch.Tensor, lora_a, lora_b, 
 def apply_ffn(mlp: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Gated-GELU FFN with optional (unscaled, reference-parity) LoRA terms.
 
-    ``mlp`` has ``gate_proj``, ``up_proj``, ``down_proj`` (``nn.Linear`` or
-    ``QuantLinear``) and, with LoRA, ``gating_lora_a [2, D, r]``,
-    ``gating_lora_b [2, r, F]``, ``linear_lora_a [F, r]``, ``linear_lora_b [r, D]``.
-    All three quantized: the fused op of ``ops.quant`` (K4a with LoRA, K4b
-    without). Otherwise each projection on its own, a quantized one taking
-    its LoRA term in the product's epilogue.
+    ``mlp`` has ``gate_proj``, ``up_proj``, ``down_proj`` (``nn.Linear``,
+    ``QuantLinear`` or ``SwitchBackLinear``) and, with LoRA,
+    ``gating_lora_a [2, D, r]``, ``gating_lora_b [2, r, F]``,
+    ``linear_lora_a [F, r]``, ``linear_lora_b [r, D]``. All three quantized
+    (and not weight-only): the fused op of ``ops.quant`` (K4a with LoRA, K4b
+    without). All three SwitchBack, without LoRA and not weight-only: the
+    fused SwitchBack op (``sb_fused_ffn``). Otherwise each projection on its
+    own, a quantized one taking its LoRA term in the product's epilogue.
     """
 
     def lora_term(x, lora_ab):
@@ -116,15 +118,18 @@ def apply_ffn(mlp: nn.Module, x: torch.Tensor) -> torch.Tensor:
     def dot(x, layer, lora_ab):
         if _quant.is_quant(layer):
             return _quant.linear(x, layer, add=None if lora_ab is None else lora_term(x, lora_ab))
-        y = x @ layer.weight.to(x.dtype).T
+        y = _quant.product(x, layer)
         return y if lora_ab is None else y + lora_term(x, lora_ab)
 
     ga, gb = getattr(mlp, "gating_lora_a", None), getattr(mlp, "gating_lora_b", None)
     la, lb = getattr(mlp, "linear_lora_a", None), getattr(mlp, "linear_lora_b", None)
     layers = (mlp.gate_proj, mlp.up_proj, mlp.down_proj)
-    if all(_quant.is_quant(layer) for layer in layers) and (ga is None) == (la is None):
+    fused = not any(getattr(layer, "weight_only", False) for layer in layers)  # ``fused_ffn_enabled``
+    if fused and all(_quant.is_quant(layer) for layer in layers) and (ga is None) == (la is None):
         lora_params = None if ga is None else (ga[0], gb[0], ga[1], gb[1], la, lb)
         return _quant.apply_fused_ffn(*layers, x, lora_params)
+    if fused and all(_quant.is_switchback(layer) for layer in layers) and ga is None and la is None:
+        return _quant.sb_fused_ffn(x, *(layer.weight for layer in layers))
     gate = dot(x, mlp.gate_proj, None if ga is None else (ga[0], gb[0]))
     up = dot(x, mlp.up_proj, None if ga is None else (ga[1], gb[1]))
     activations = F.gelu(gate, approximate="tanh") * up

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from kai0_tpu_torch.ops import attention as _attention
+from kai0_tpu_torch.ops import quant as _quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,9 +64,10 @@ def get_config(num_classes: int, variant: str = "So400m/14", dtype_mm: str = "fl
     )
 
 
-def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """x·Wᵀ, then the bias, each rounded in x's dtype (as the JAX einsum + add)."""
-    return x @ layer.weight.to(x.dtype).T + layer.bias.to(x.dtype)
+def _linear(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
+    """x·Wᵀ by the layer's route (``ops.quant.product``: bf16, a frozen int8 holder at serving, SwitchBack), then
+    the bias, each rounded in x's dtype (as the JAX einsum + add)."""
+    return _quant.product(x, layer) + layer.bias.to(x.dtype)
 
 
 def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:

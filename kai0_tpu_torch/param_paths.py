@@ -41,6 +41,27 @@ LAYER_LEAVES = {
 LORA_TAILS = tuple(tail for tail in LAYER_LEAVES if "lora" in tail)
 _NORM_LEAVES = {"weight": "scale", "dense.weight": "Dense_0/kernel", "dense.bias": "Dense_0/bias"}
 
+VIT = f"{PG}.vision_tower.vision_model."
+IMG = "PaliGemma/img"
+VIT_LEAVES = {  # the port's tail under the tower -> JAX leaf under ``PaliGemma/img/``
+    "embeddings.patch_embedding.weight": "embedding/kernel",
+    "embeddings.patch_embedding.bias": "embedding/bias",
+    "embeddings.position_embedding.weight": "pos_embedding",
+    "post_layernorm.weight": "Transformer/encoder_norm/scale",
+    "post_layernorm.bias": "Transformer/encoder_norm/bias",
+}
+VIT_LAYER_LEAVES = {  # the port's tail under ``encoder.layers.{i}.`` -> JAX leaf under ``.../encoderblock/``
+    "layer_norm1.weight": "LayerNorm_0/scale", "layer_norm1.bias": "LayerNorm_0/bias",
+    "layer_norm2.weight": "LayerNorm_1/scale", "layer_norm2.bias": "LayerNorm_1/bias",
+    **{f"self_attn.{p[0]}_proj.{leaf}": f"MultiHeadDotProductAttention_0/{p}/{jax_leaf}"
+       for p in ("query", "key", "value") for leaf, jax_leaf in (("weight", "kernel"), ("bias", "bias"))},
+    "self_attn.out_proj.weight": "MultiHeadDotProductAttention_0/out/kernel",
+    "self_attn.out_proj.bias": "MultiHeadDotProductAttention_0/out/bias",
+    "mlp.fc1.weight": "MlpBlock_0/Dense_0/kernel", "mlp.fc1.bias": "MlpBlock_0/Dense_0/bias",
+    "mlp.fc2.weight": "MlpBlock_0/Dense_1/kernel", "mlp.fc2.bias": "MlpBlock_0/Dense_1/bias",
+}
+_HOLDER_LEAVES = (".qweight", ".scale")  # an int8 holder's codes and scales stand for the weight they replace
+
 
 def _gemma_leaf(rest: str, sfx: str) -> str | None:
     if rest == "embed_tokens.weight":
@@ -61,14 +82,26 @@ def _gemma_leaf(rest: str, sfx: str) -> str | None:
     return None
 
 
+def _vit_leaf(tail: str) -> str | None:
+    if tail in VIT_LEAVES:
+        return VIT_LEAVES[tail]
+    m = re.fullmatch(r"encoder\.layers\.\d+\.(.+)", tail)
+    if not m:
+        return None
+    leaf = m.group(1)
+    if leaf.endswith(_HOLDER_LEAVES):
+        leaf = leaf.rpartition(".")[0] + ".weight"
+    return f"Transformer/encoderblock/{VIT_LAYER_LEAVES[leaf]}" if leaf in VIT_LAYER_LEAVES else None
+
+
 def jax_param_path(name: str) -> str:
     """The JAX parameter path of a port parameter or buffer name.
 
-    Gemma names map leaf for leaf (a ``QuantLinear``'s ``qweight`` / ``scale``
-    map to the weight they replace). SigLIP names are not translated one by
-    one: they come back as ``PaliGemma/img/<port tail>``, which is all that the
-    path predicates (``llm``, the ``_1`` expert suffix, ``lora``) read. The
-    advantage estimator's ``value_head.{0,2,4}`` are ``value_head/Dense_{0,1,2}``
+    Gemma and SigLIP names map leaf for leaf (a ``QuantLinear``'s ``qweight`` /
+    ``scale`` map to the weight they replace; a SigLIP layer's leaf is the
+    stacked ``encoderblock`` leaf it is a slice of), and the 2048-wide
+    projection is SigLIP's ``head``. The advantage estimator's
+    ``value_head.{0,2,4}`` are ``value_head/Dense_{0,1,2}``
     (``kai0_tpu/interop/torch_safetensors.py:320-321``).
     """
     for root, sfx in EXPERT_ROOTS:
@@ -77,8 +110,13 @@ def jax_param_path(name: str) -> str:
             if leaf is None:
                 raise KeyError(f"no JAX parameter path for {name!r}")
             return f"{LLM}/{leaf}"
-    if name.startswith((f"{PG}.vision_tower.", f"{PG}.multi_modal_projector.")):
-        return "PaliGemma/img/" + name[len(PG) + 1:].replace(".", "/")
+    if name.startswith(VIT):
+        leaf = _vit_leaf(name[len(VIT):])
+        if leaf is None:
+            raise KeyError(f"no JAX parameter path for {name!r}")
+        return f"{IMG}/{leaf}"
+    if name.startswith(f"{PG}.multi_modal_projector.linear."):
+        return f"{IMG}/head/{'bias' if name.endswith('.bias') else 'kernel'}"
     module, _, leaf = name.rpartition(".")
     if m := re.fullmatch(r"value_head\.([024])", module):  # the estimator's head: Dense_0-2 (torch 0, 2, 4)
         module = f"value_head/Dense_{int(m.group(1)) // 2}"

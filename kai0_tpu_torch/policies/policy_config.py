@@ -5,7 +5,9 @@ checkpoint's ``model.safetensors`` (the ``PI0Pytorch`` key layout; π₀-FAST's
 is its PaliGemma half) into the config's model with bf16 parameters (π₀ or
 π₀.₅ ``Pi0``, ``Pi0RTC`` for an RTC config, ``Pi0FAST``), optionally
 quantizes its Gemma matmul weights to int8
-(``ops/quant.quantize_inference_tree``), loads the norm stats from the
+(``ops/quant.quantize_inference_tree``; the config's ``knobs`` under the
+``KAI0_INT8_*`` environment choose the Gemma sites, the SigLIP sites and
+weight-only), loads the norm stats from the
 checkpoint's ``assets/<asset_id>`` (so serving uses the stats training used),
 and builds the transform chains
 
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from kai0_tpu_torch import interop as _interop
+from kai0_tpu_torch import knobs as _knobs
 from kai0_tpu_torch import transforms as _transforms
 from kai0_tpu_torch.models import model as _model
 from kai0_tpu_torch.ops import quant as _quant
@@ -87,8 +90,12 @@ def create_trained_policy(
     checkpoint_dir = pathlib.Path(checkpoint_dir)
     model = _load_model(train_config.model, checkpoint_dir, params, device).eval()
     if quantize:
-        # int8 Gemma matmul weights: half the weight bytes; moves the actions slightly.
-        _quant.quantize_inference_tree(model)
+        # int8 matmul weights: half the weight bytes; moves the actions slightly.
+        knobs = _knobs.resolve(train_config.knobs)
+        _quant.quantize_inference_tree(
+            model, sites=_quant.gemma_sites(knobs.int8_sites), siglip_sites=_quant.siglip_inference_sites(knobs.int8_siglip),
+            weight_only=knobs.int8_weight_only,
+        )
 
     data_config = train_config.data.create(train_config.assets_dirs, train_config.model)
     if norm_stats is None and data_config.asset_id is not None:

@@ -27,6 +27,7 @@ import logging
 import pathlib
 from typing import Any, Protocol
 
+from kai0_tpu_torch import knobs as _knobs
 from kai0_tpu_torch import transforms as _transforms
 from kai0_tpu_torch.models import model as _model
 from kai0_tpu_torch.models import pi0 as pi0_config
@@ -229,6 +230,8 @@ class TrainConfig:
     ema_decay: float | None = 0.99
     param_dtype: str | None = None  # storage dtype of the trainable parameters; None keeps the model's (f32)
     quantize_frozen: bool = False  # int8 frozen base: quantized once at init, never updated (ops/quant.py)
+    # The int8 modes (kai0_tpu_torch/knobs.py; ``--knobs.int8_sb_gemma=ffn``); the KAI0_INT8_* environment wins.
+    knobs: _knobs.Knobs = dataclasses.field(default_factory=_knobs.Knobs)
 
     # What the training loop reads (train_lib.main).
     checkpoint_base_dir: str = "./checkpoints"

@@ -5,9 +5,11 @@ Counterpart of ``kai0_tpu/training/train_lib.py``: ``init_train_state``
 copies in the weight loader's weights (unless the run resumes, when the
 checkpoint brings them), casts the parameters to ``param_dtype``, freezes what the model's freeze
 filter names (the base weights of a ``*_lora`` expert: stored in bf16, without
-gradients and, with ``quantize_frozen``, their matmul weights quantized to
-int8 once) and builds the optimizer state, over the trainable parameters only,
-and the EMA; ``train_step`` runs ``compute_loss`` -> backward -> clip -> AdamW ->
+gradients and, with ``quantize_frozen``, their matmul weights at the
+``int8_sites`` quantized to int8 once), runs the selected products by
+SwitchBack (``TrainConfig.knobs``: ``int8_sb_gemma``, ``int8_switchback``;
+same parameters, so checkpoints and optimizer state keep their keys) and
+builds the optimizer state, over the trainable parameters only, and the EMA; ``train_step`` runs ``compute_loss`` -> backward -> clip -> AdamW ->
 weight decay -> learning rate -> apply (stochastically rounded into bf16
 parameters) -> EMA, and returns ``{"loss", "grad_norm"}`` with the norm
 accumulated in f32. Parameters and optimizer state are updated in place.
@@ -30,6 +32,7 @@ import time
 
 import torch
 
+from kai0_tpu_torch import knobs as _knobs
 from kai0_tpu_torch.models import model as _model
 from kai0_tpu_torch.ops import quant as _quant
 from kai0_tpu_torch.training import optimizer as _optimizer
@@ -45,12 +48,13 @@ def trainable_mask(model: torch.nn.Module) -> dict[str, bool]:
     return {name: not frozen(name) for name, _ in model.named_parameters()}
 
 
-def freeze_params(model: torch.nn.Module, *, quantize: bool = False) -> dict[str, bool]:
+def freeze_params(model: torch.nn.Module, *, quantize: bool = False, knobs: _knobs.Knobs | None = None) -> dict[str, bool]:
     """Freeze what the model's freeze filter names, in place, and return the trainable mask.
 
     A frozen parameter loses its gradient and is stored in bf16; with
-    ``quantize`` the frozen Gemma matmul weights then become int8
-    ``QuantLinear`` holders (``quantize_frozen_tree``).
+    ``quantize`` the frozen Gemma matmul weights at ``knobs.int8_sites`` then
+    become int8 ``QuantLinear`` holders (``quantize_frozen_tree``), weight-only
+    under ``knobs.int8_weight_only``.
     """
     mask = trainable_mask(model)
     if not all(mask.values()):
@@ -59,8 +63,11 @@ def freeze_params(model: torch.nn.Module, *, quantize: bool = False) -> dict[str
                 p.requires_grad_(False)
                 p.data = p.data.to(torch.bfloat16)
         if quantize:
-            _quant.quantize_frozen_tree(model, mask)
+            knobs = _knobs.resolve(knobs)
+            _quant.quantize_frozen_tree(model, mask, _quant.gemma_sites(knobs.int8_sites),
+                                        weight_only=knobs.int8_weight_only)
     return mask
+
 
 
 def _load_weights_and_validate(loader, model: torch.nn.Module) -> None:
@@ -87,13 +94,16 @@ def _load_weights_and_validate(loader, model: torch.nn.Module) -> None:
 
 def init_train_state(model: torch.nn.Module, config: TrainConfig, *, device="cuda", resume: bool = False) -> TrainState:
     """Copy in ``config.weight_loader``'s weights unless ``resume`` (a resume restores them from the checkpoint),
-    move the model to ``device`` in ``param_dtype``, freeze (and quantize) the frozen leaves; build the optimizer
-    state over the trainable parameters and the EMA."""
+    move the model to ``device`` in ``param_dtype``, freeze (and quantize) the frozen leaves, install SwitchBack
+    where the knobs select it; build the optimizer state over the trainable parameters and the EMA."""
     model.to(device=device)
     if not resume:
         _load_weights_and_validate(config.weight_loader, model)
     model.to(dtype=None if config.param_dtype is None else getattr(torch, config.param_dtype))
-    mask = freeze_params(model, quantize=config.quantize_frozen)
+    knobs = _knobs.resolve(config.knobs)
+    mask = freeze_params(model, quantize=config.quantize_frozen, knobs=knobs)
+    _quant.switchback_tree(model, gemma=knobs.int8_sb_gemma, siglip=knobs.int8_switchback,
+                           weight_only=knobs.int8_weight_only)
     params = dict(model.named_parameters())
     trainable, _ = split_by_mask(params, mask)
     ema = None if config.ema_decay is None else {k: p.detach().clone() for k, p in params.items()}

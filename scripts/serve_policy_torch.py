@@ -6,7 +6,12 @@ The arguments of ``scripts/serve_policy.py``:
         --policy.dir=<checkpoint dir holding model.safetensors and assets/> --warmup --prompt-buckets=64,128
 
 ``--warmup`` captures the sampler's CUDA graph of every prompt bucket before
-the listener starts; ``--int8`` quantizes the Gemma matmul weights;
+the listener starts; ``--int8`` quantizes the Gemma matmul weights, with
+``--int8_weight_only`` (int8 weights dequantized into bf16 products, no
+activation quantization), ``--int8_siglip=all`` (or ``attn,mlp,head``: the
+SigLIP sites too) and ``--int8_sites`` (the Gemma sites: comma-separated
+substrings, ``-gating`` excludes the FFN's gate and up); each sets the
+config's ``knobs`` field of that name, and a ``KAI0_INT8_*`` variable wins;
 ``--max_batch`` > 1 coalesces concurrent requests into one batch of up to
 that many (power-of-two sizes, one CUDA graph each; ``--batch_wait_ms`` holds
 a batch's first request that long for others to join). An RTC config
@@ -21,6 +26,7 @@ tests). The server and its codec need no package beyond torch and numpy.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import enum
 import logging
 import os
@@ -52,6 +58,12 @@ def parse_args(argv=None):
     parser.add_argument("--record", action="store_true")
     parser.add_argument("--warmup", action="store_true", help="capture the sampler's CUDA graphs before listening")
     parser.add_argument("--int8", action="store_true", help="int8 Gemma weights (half the weight bytes; slight action drift)")
+    parser.add_argument("--int8_weight_only", "--int8-weight-only", dest="int8_weight_only", action="store_true",
+                        default=None, help="with --int8: int8 weights into bf16 products (KAI0_INT8_WO)")
+    parser.add_argument("--int8_siglip", "--int8-siglip", dest="int8_siglip", default=None,
+                        help="with --int8: SigLIP sites too, 'all' or a list of attn,mlp,head (KAI0_INT8_SIGLIP)")
+    parser.add_argument("--int8_sites", "--int8-sites", dest="int8_sites", default=None,
+                        help="with --int8: the Gemma sites, e.g. '-gating' (KAI0_INT8_SITES)")
     parser.add_argument(
         "--prompt-buckets",
         "--prompt_buckets",
@@ -80,8 +92,12 @@ def create_policy(args) -> _policy.Policy:
                          "name a train config and a local checkpoint directory with --policy.config and --policy.dir")
     if "://" in args.policy_dir:
         raise ValueError(f"{args.policy_dir}: the port reads local checkpoint directories only")
+    config = _config.get_config(args.policy_config)
+    modes = {k: getattr(args, k) for k in ("int8_weight_only", "int8_siglip", "int8_sites") if getattr(args, k) is not None}
+    if modes:
+        config = dataclasses.replace(config, knobs=dataclasses.replace(config.knobs, **modes))
     return _policy_config.create_trained_policy(
-        _config.get_config(args.policy_config),
+        config,
         args.policy_dir,
         default_prompt=args.default_prompt,
         warmup=args.warmup,
