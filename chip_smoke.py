@@ -145,10 +145,15 @@ Phases, none of which catches an error (any failure exits non-zero):
     first request's staged inputs: the graph's x_0 bit-equal to the eager
     ``sample_actions``, the capture's launch counts equal to the eager
     request's, the bucket's x_0 within phase 5's bf16 bounds of the full
-    prompt's, and a profiled replay launching the eager request's attention
+    prompt's, and a profiled replay launching the eager request's (counted) attention
     kernels by name and count (its device time and kernel count printed).
     Then all of it again with ``quantize=True``, whose replay must run the
-    prefill products on ``wgmma`` and the denoise products on split-K.
+    prefill products on ``wgmma`` and the denoise products on split-K. Then
+    ``create_trained_policy(..., sample_kwargs={"num_steps": 5})`` on the same
+    checkpoint serves 11 of the requests: the first captures a 5-step graph
+    (keyed by the kwargs, beside the 10-step policy's) with the counts at 0,
+    108 K1f and 27 K2f, its x_0 bit-equal to the eager sampler's at 5 steps and
+    other than the 10-step graph's; ``infer_ms`` p50 / p90 of the 10 replays.
 15. RTC through the entry points, on phase 14's checkpoint, bf16 then int8:
     ``create_trained_policy(get_config("pi05_rtc_flatten_fold_inference"),
     ..., prompt_buckets=[64], warmup=True)`` captures, per bucket, the
@@ -165,8 +170,13 @@ Phases, none of which catches an error (any failure exits non-zero):
     previous chunk than the unguided sample's; a profiled replay launches the
     eager request's attention kernels by name and count (int8: the 1,080
     ``nn`` products on the ``mma.sync`` tiles, split-K and ``wgmma`` for the
-    rest, and K5's column-scale launches). Then a guided sample at full
-    width, depth 2, f32: card (kernels) against host CPU within 1e-3.
+    rest, and K5's column-scale launches). In bf16, the last round's guided
+    request through ``create_trained_policy(..., sample_kwargs=
+    {"max_guidance_weight": 5.0})`` (the client's default cap): its graph's
+    capture with the counts at 0 (198 K1f, 180 K1b, 27 K2f), x_0 bit-equal to
+    the eager sampler's at that cap and other than the 0.5 cap's. Then a
+    guided sample at full width, depth 2, f32: card (kernels) against host
+    CPU within 1e-3.
 16. Batched requests: ``infer_batch`` of raw Agilex requests at padded sizes
     1, 2, 4 and 8 (bucket 64, 10 batches each) in bf16 and 4 in int8, each
     row within phase 5's bf16 bounds of the same request served alone with
@@ -253,7 +263,13 @@ Phases, none of which catches an error (any failure exits non-zero):
     (two 180x320 cameras) through ``create_trained_policy`` and the eager
     greedy decoder: wall and ``infer_ms`` a request, the tokens decoded, the
     prefill's ms and the ms a decode step, 18 K1f a token (the prefill, then
-    each token fed back) and 27 K2f a request; one prefill and one decode
+    each token fed back) and 27 K2f a request; the same request in int8
+    (``quantize=True``): per forward 90 K5 and 108 K4b ``nt`` beside the 18
+    K1f, a profiled prefill and decode step running the prefill's products on
+    ``wgmma`` (M = 1,018) and the step's on split-K (M = 1), wall, ``infer_ms``
+    and ms a token, finite actions; K5 and K4b at those shapes (every Gemma-2B
+    site) against their plain versions, bit-equal, timed beside the bound and
+    ``torch._int_mm`` + scaling (none at M = 1: it takes more than 16 rows); one prefill and one decode
     step profiled: device ms by kernel family and the device's idle share of
     the unprofiled wall; (e) π₀-FAST at depth 2, f32: the logits of the
     prefill and of 15 decode steps fed seeded tokens agree, card against
@@ -320,7 +336,7 @@ Phases, none of which catches an error (any failure exits non-zero):
     card, forward and ``dx`` bit-equal, the three weight gradients within
     one bf16 step; K5 on the weights' rows and K5 / K4b (forward and ``dx``)
     at SigLIP's shapes, M = 768 (serving) and 24,576 (training), bit-equal,
-    timed beside the bound; (d) inside phase 14, on its checkpoint and first
+    timed beside the bound and (K4b) ``torch._int_mm`` + scaling; (d) inside phase 14, on its checkpoint and first
     10 requests: ``create_trained_policy(quantize=True)`` with
     ``knobs.int8_weight_only`` and with ``knobs.int8_siglip="all"``, the
     first request capturing the graph with the counts at 0: no K5 or K4b
@@ -328,6 +344,23 @@ Phases, none of which catches an error (any failure exits non-zero):
     of each than Gemma-only int8 (27 layers x 6 projections and the head),
     the actions within phase 11's int8 bound of phase 14's bf16 actions,
     ``infer_ms`` p50 / p90 beside phase 14's bf16 and int8.
+24. The robot edge, inside phase 17, against its server (RTC's bf16 policy
+    on 127.0.0.1): the C++ buffers of ``kai0_tpu_torch/native`` built from
+    the checkout with g++ (seconds, ``g++ --version``, and whether
+    ``Python.h``, ``h5py`` and ``cv2`` are here); ``make_stream_buffer`` /
+    ``make_ensembling_buffer`` give the C++ buffers. The client's four modes
+    (``scripts/inference_client_torch.py``'s ``run_sync``, ``run_smooth``,
+    ``run_ensemble``, ``run_rtc``) in turn on ``SimRobot`` with the Agilex
+    cameras over the port's wire client, 25 Hz publishing, 4 Hz inference,
+    50 steps each: exactly 50 finite actions, the requests, the publish
+    period p50 / p90 and the wall a request; each mode's first requests
+    capture its graphs with the counts at 0, so its K1f, K2f and (rtc) K1b
+    launches are > 0 and twice its captures. The script itself with
+    ``--sim --mode smooth --max-steps 25`` must exit 0. The DAgger driver
+    (``scripts/dagger_collect_torch.py``'s ``run``) over 30 frames with the
+    server's actions (infer, record, take over, resume, save): without
+    ``h5py`` the save must raise naming it with the 29 recorded frames kept;
+    with it ``convert_h5`` must read the 29 back.
 
 Build: ptxas's register and spill lines of every kernel are printed; the
 tensor-core attention kernels, the ``wgmma`` and split int8 kernels, the
@@ -370,7 +403,12 @@ keys suffixed ``_arithmetic``; phase 22's ``launches_aligned_train`` (its 4 step
 through the views; 0 for the int8 kernels); for K5 (both entries) and K4b,
 phase 23's ``launches_sb_train`` (one step of (a)) and
 ``launches_serving_siglip_int8`` (the capture of (d)'s SigLIP + Gemma int8
-request).
+request); phase 14's ``launches_serving_5step`` and phase 15's
+``launches_serving_rtc_guidance5`` (their graphs' captures), phase 20's
+``launches_fast_int8_serving`` (K1f, K2f, K5, K4b) and K5's and K4b's numbers
+at its decode and prefill shapes under keys suffixed ``_fast_decode`` and
+``_fast_prefill``, and phase 24's ``launches_client_<mode>`` for each client
+mode (K1f, K2f; K1b for rtc).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -613,7 +651,7 @@ def _device_inputs(staged: dict) -> dict:
             for k, v in staged.items()}
 
 
-def _eager_sample(model, staged: dict, noise: np.ndarray) -> tuple[np.ndarray, dict]:
+def _eager_sample(model, staged: dict, noise: np.ndarray, **sample_kwargs) -> tuple[np.ndarray, dict]:
     """``model.sample_actions`` (eager, no graph) on staged inputs and noise: x_0 [B, 50, 32] and its launches."""
     from kai0_tpu_torch.models.model import Observation
     from kai0_tpu_torch.policies import graphs
@@ -621,7 +659,7 @@ def _eager_sample(model, staged: dict, noise: np.ndarray) -> tuple[np.ndarray, d
     obs = Observation.from_dict(_device_inputs(staged))
     noise = torch.from_numpy(noise.reshape(1, *noise.shape[-2:])).cuda()
     before = graphs.launch_counts()
-    x0 = model.sample_actions(obs, noise=noise)
+    x0 = model.sample_actions(obs, noise=noise, **sample_kwargs)
     torch.cuda.synchronize()
     return x0.cpu().numpy(), {k: v - before[k] for k, v in graphs.launch_counts().items() if v - before[k]}
 
@@ -1812,23 +1850,90 @@ def _serve_entry_once(cfg, ckpt: str, quantize: bool) -> dict:
     replay_families, replay_ms, replay_attention = _profile_families(prof_replay)
     eager_families, eager_ms, eager_attention = _profile_families(prof_eager)
     by_count = lambda kernels: {k: count for k, (_, count) in kernels.items()}  # noqa: E731
-    _check(by_count(replay_attention) == by_count(eager_attention) and replay_attention,
-           f"entry {label}: attention kernels of the replay {by_count(replay_attention)}, eager {by_count(eager_attention)}")
+    # The replay's attention kernels by name and count against the eager request's launches (the counters, which
+    # equal the capture's, above), not against its profile: the profiler can drop a kernel record of an eager run
+    # (PR 20's call 2 saw 197 of its 198 K1f; phase 15 compares the same way).
+    by_name = {k.split("::")[-1]: count for k, count in by_count(replay_attention).items()}
+    _check(by_name.get("mqa_fwd") == capture["flash_mha"] and by_name.get("mhsa_fwd") == capture["flash_mhsa"]
+           and by_name.get("flash_fwd_combine", 0) <= capture["flash_mha"],
+           f"entry {label}: attention kernels of the replay {by_count(replay_attention)}, launches of the eager request "
+           f"{eager_launches}; the eager request's profile {by_count(eager_attention)}")
     kernels = sum(count for _, count in replay_families.values())
     print(f"entry {label}: one replayed request: {replay_ms:.2f} ms of device time in {kernels} kernels (wall p50 "
           f"{np.percentile(walls, 50):.2f} ms, infer_ms p50 {np.percentile(timing['infer_ms'], 50):.2f}); eager: "
           f"{eager_ms:.2f} ms in {sum(c for _, c in eager_families.values())} kernels; by family (replay): "
           + "; ".join(f"{fam} {ms:.2f} ms x{count}" for fam, (ms, count) in sorted(replay_families.items(),
                                                                                  key=lambda kv: -kv[1][0])))
-    print(f"  attention kernels of the replay (= eager): {by_count(replay_attention)}")
+    print(f"  attention kernels of the replay (= the eager request's launches): {by_count(replay_attention)}; of the "
+          f"eager request's profile: {by_count(eager_attention)}")
     if quantize:
         counts = _check_int8_orientations(_kernels_named(prof_replay, "int8_mm"), f"entry {label} replay")
         want = {"wgmma nt": 18 * 6, "wgmma nn": 0, "splitk nt": 18 * 10 * 6, "mma.sync nt": 0, "mma.sync nn": 0}
         _check(counts == want, f"entry {label}: int8 kernels of the replay {counts}, want {want}")
     _check_replayed_row_quant(prof_replay, quantize, f"entry {label} replay")
+    five = None if quantize else _serve_five_steps(cfg, ckpt, policy, requests, noise)
     del policy, graph, full_graph
     torch.cuda.empty_cache()
-    return {"capture": capture, "requests": requests, "noise": noise, "actions": outs, "infer_ms": timing["infer_ms"]}
+    return {"capture": capture, "requests": requests, "noise": noise, "actions": outs, "infer_ms": timing["infer_ms"],
+            "five_steps": five}
+
+
+FIVE_STEPS = 5  # phase 14's request with sample_kwargs={"num_steps": 5}
+FIVE_STEP_REQUESTS = 10  # replayed, after the one that captures
+
+
+def _serve_five_steps(cfg, ckpt: str, ten: object, requests: list, noise: np.ndarray) -> dict:
+    """Phase 14, continued: ``create_trained_policy(..., sample_kwargs={"num_steps": 5})`` on the same checkpoint
+    serves 11 of the requests; the first captures the 5-step graph with the counts at 0 (keyed by the kwargs,
+    beside the 10-step policy's graph of the same bucket), whose x_0 must equal the eager sampler's at 5 steps, bit
+    for bit, and launch 18 + 5 x 18 K1f and 27 K2f. Returns the launches of that capture."""
+    from kai0_tpu_torch.policies import graphs, policy_config
+
+    kwargs = {"num_steps": FIVE_STEPS}
+    t = time.perf_counter()
+    policy = policy_config.create_trained_policy(cfg, ckpt, prompt_buckets=ENTRY_BUCKETS, sample_kwargs=kwargs)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    _reset_launches()
+    walls, infer_ms = [], []
+    for obs in requests[: FIVE_STEP_REQUESTS + 1]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = policy.infer(obs, noise=noise)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1000)
+        infer_ms.append(out["policy_timing"]["infer_ms"])
+        _check(out["actions"].shape == (50, 14) and np.isfinite(out["actions"]).all(), "5-step request: actions")
+    served = {k: v for k, v in _read_launches().items() if v}
+    staged = policy.stage_inputs(requests[0])
+    key = graphs.signature(staged, None, kwargs)
+    _check(list(policy.graphs) == [key], f"5-step policy: graphs {list(policy.graphs)}")
+    graph = policy.graphs[key]
+    capture = {k: v for k, v in graph.capture_launches.items() if v}
+    want = {"flash_mha": 18 + FIVE_STEPS * 18, "flash_mhsa": 27}
+    _check(graph.num_steps == FIVE_STEPS and capture == want and served == {k: 2 * v for k, v in want.items()},
+           f"5-step policy: launches at capture {capture}, of the requests {served}, want {want}")
+    graph.stage(staged, noise[None])
+    graph.replay()
+    x0 = graph.fetch()
+    eager, eager_launches = _eager_sample(policy.model, staged, noise, num_steps=FIVE_STEPS)
+    _check(np.array_equal(eager, x0) and eager_launches == capture,
+           f"5-step graph against the eager sampler at 5 steps: equal {np.array_equal(eager, x0)}, launches "
+           f"{eager_launches}")
+    ten_graph = ten.graph_for(staged)
+    ten_graph.stage(staged, noise[None])
+    ten_graph.replay()
+    x0_ten = ten_graph.fetch()
+    _check(ten_graph.num_steps == 10 and ten_graph.key != key and not np.array_equal(x0_ten, x0),
+           "the 5-step and 10-step graphs are not two graphs")
+    print(f"entry bf16 5 steps: create_trained_policy(..., sample_kwargs={kwargs}) in {load_s:.2f}s; the first of "
+          f"{FIVE_STEP_REQUESTS + 1} requests captured the 5-step graph ({graph.capture_seconds:.2f}s; key "
+          f"{key[-1]}), launches at capture {capture} (10 steps: 198 K1f); x_0 bit-equal to the eager sampler's at 5 "
+          f"steps; |x_0(5) - x_0(10)| max {np.abs(x0 - x0_ten).max():.4e}; requests 1-{FIVE_STEP_REQUESTS}: wall_ms "
+          f"{_percentiles(walls[1:])}, infer_ms {_percentiles(infer_ms[1:])}")
+    del policy, graph
+    torch.cuda.empty_cache()
+    return capture
 
 
 RTC_CONFIG = "pi05_rtc_flatten_fold_inference"
@@ -1903,9 +2008,9 @@ def _rtc_int8_launches(depth: int = 18, steps: int = 10) -> dict:
     return {k: depth * (1 + steps) * forward.get(k, 0) + depth * steps * backward[k] for k in backward}
 
 
-def _serve_rtc_once(cfg, ckpt: str, quantize: bool) -> tuple[dict, object, list[float]]:
-    """Phase 15 for one policy; returns the launches of one guided request (its graph's capture), the policy and the
-    wall ms of its replayed rounds."""
+def _serve_rtc_once(cfg, ckpt: str, quantize: bool) -> tuple[dict, object, list[float], dict | None]:
+    """Phase 15 for one policy; returns the launches of one guided request (its graph's capture), the policy, the
+    wall ms of its replayed rounds and (bf16) the launches of the guided request at ``RTC_GUIDANCE``."""
     from kai0_tpu_torch.deploy.rtc_client import RTCClient
     from kai0_tpu_torch.policies import graphs, policy_config
 
@@ -2004,7 +2109,63 @@ def _serve_rtc_once(cfg, ckpt: str, quantize: bool) -> tuple[dict, object, list[
                f"{label}: K5 kernels of the replay {k5}")
         print(f"  row_quant kernels of the {label} replay: {colscale} with the column scale of "
               f"{sum(c for _, c in k5.values())}: " + "; ".join(f"{k} {ms:.2f} ms x{c}" for k, (ms, c) in k5.items()))
-    return capture, policy, walls
+    guidance = None if quantize else _serve_rtc_guidance(cfg, ckpt, policy, last, noise)
+    return capture, policy, walls, guidance
+
+
+RTC_GUIDANCE = 5.0  # max_guidance_weight: the client's default (train_deploy_alignment/inference/inference_client.py:274)
+
+
+def _serve_rtc_guidance(cfg, ckpt: str, half: object, request: dict, noise: np.ndarray) -> dict:
+    """Phase 15, continued (bf16): ``create_trained_policy(..., sample_kwargs={"max_guidance_weight": 5.0})`` serves
+    the last round's guided request twice; the first captures the guided graph at that cap with the counts at 0. Its
+    x_0 must equal the eager RTC sampler's at that cap, bit for bit, and differ from the default cap's (0.5) graph.
+    Returns the launches of that capture."""
+    from kai0_tpu_torch.models import pi0_rtc
+    from kai0_tpu_torch.policies import graphs, policy_config
+
+    kwargs = {"max_guidance_weight": RTC_GUIDANCE}
+    t = time.perf_counter()
+    policy = policy_config.create_trained_policy(cfg, ckpt, prompt_buckets=RTC_BUCKETS, sample_kwargs=kwargs)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    _reset_launches()
+    walls, outs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs.append(policy.infer(request, noise=noise))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1000)
+    served = {k: v for k, v in _read_launches().items() if v}
+    _check(np.array_equal(outs[0]["actions"], outs[1]["actions"]) and np.isfinite(outs[0]["actions"]).all(),
+           f"RTC guidance {RTC_GUIDANCE}: the replay's actions differ from the capturing request's")
+    rtc = {k: request[k] for k in pi0_rtc.RTC_KEYS}
+    staged = policy.stage_inputs(request)
+    config = policy.model_config
+    chunk, provided, _ = pi0_rtc.rtc_inputs(rtc["prev_action_chunk"], rtc["inference_delay"], rtc["execute_horizon"],
+                                            config.action_horizon, config.action_dim)
+    key = graphs.signature(staged, (chunk.shape[1], provided), kwargs)
+    _check(list(policy.graphs) == [key], f"RTC guidance {RTC_GUIDANCE}: graphs {list(policy.graphs)}")
+    capture = {k: v for k, v in policy.graphs[key].capture_launches.items() if v}
+    want = {"flash_mha": 198, "flash_mha_bwd": 180, "flash_mhsa": 27}
+    _check(capture == want and served == {k: 2 * v for k, v in want.items()},
+           f"RTC guidance {RTC_GUIDANCE}: launches at capture {capture}, of the requests {served}")
+    x0 = _rtc_graph_x0(policy, staged, noise, rtc)
+    eager, eager_launches = _rtc_eager(policy.model, staged, noise, {**rtc, **kwargs})
+    _check(np.array_equal(eager, x0) and eager_launches == capture,
+           f"RTC guidance {RTC_GUIDANCE}: graph against eager: equal {np.array_equal(eager, x0)}, launches "
+           f"{eager_launches}")
+    x0_half = _rtc_graph_x0(half, staged, noise, rtc)
+    _check(not np.array_equal(x0_half, x0), f"RTC guidance {RTC_GUIDANCE}: the cap did not move x_0")
+    print(f"RTC bf16, max_guidance_weight={RTC_GUIDANCE}: create_trained_policy(..., sample_kwargs={kwargs}) in "
+          f"{load_s:.2f}s; the last round's guided request (delay {rtc['inference_delay']}) captured its graph "
+          f"(key {key[-2]}) in {walls[0]:.1f} ms with launches {capture}; its replay {walls[1]:.2f} ms, infer_ms "
+          f"{outs[1]['policy_timing']['infer_ms']:.2f}; x_0 bit-equal to the eager RTC sampler's at that cap; "
+          f"|x_0(5.0) - x_0(0.5)| max {np.abs(x0 - x0_half).max():.4e}")
+    del policy
+    torch.cuda.empty_cache()
+    return capture
 
 
 def rtc_card_vs_host() -> None:
@@ -2151,9 +2312,10 @@ def serve_batched(ckpt: str) -> dict:
     return {"bf16": launches[(False, 8)], "int8": launches[(True, 4)]}
 
 
-def serve_wire(policy, rtc_walls: list[float]) -> None:
+def serve_wire(policy, rtc_walls: list[float]) -> dict:
     """Phase 17: the port's server in a thread on 127.0.0.1, the port's client on the same machine: raw Agilex
-    requests and RTC rounds over the wire beside the same in process."""
+    requests and RTC rounds over the wire beside the same in process; then phase 24 against the same server.
+    Returns phase 24's launches."""
     import asyncio
     import contextlib
     import http.client
@@ -2212,11 +2374,11 @@ def serve_wire(policy, rtc_walls: list[float]) -> None:
             wire.append((time.perf_counter() - t) * 1000)
             _check(reply["actions"].shape == (50, 14) and np.isfinite(reply["actions"]).all(), "wire actions")
             sizes.append((len(msgpack_numpy.packb(obs)), len(msgpack_numpy.packb(reply))))
-        timed = _Timed(client)
-        rtc_client = RTCClient(timed, action_dim=32, chunk_size=50, execute_horizon=25, publish_rate=25.0)
+        rtc_timed = _Timed(client)
+        rtc_client = RTCClient(rtc_timed, action_dim=32, chunk_size=50, execute_horizon=25, publish_rate=25.0)
         for obs in requests:
             _check(rtc_client.infer_round(obs).shape == (25, 14), "wire RTC round")
-        rtc_wire = [ms for _, _, ms in timed.calls[1:]]
+        rtc_wire = [ms for _, _, ms in rtc_timed.calls[1:]]
         rtc_sizes = len(msgpack_numpy.packb(rtc_client.make_payload(requests[-1])))
         client.close()
         local_ms = [ms for _, _, ms in local.calls]
@@ -2225,10 +2387,199 @@ def serve_wire(policy, rtc_walls: list[float]) -> None:
               f"{sizes[0][0]} bytes a request, {sizes[0][1]} a reply; {WIRE_REQUESTS} RTC rounds over the wire: rounds "
               f"1-{WIRE_REQUESTS - 1} wall_ms {_percentiles(rtc_wire)} against phase 15's in process {_percentiles(rtc_walls)};"
               f" {rtc_sizes} bytes a guided request; GET /healthz 200")
+        edge = timed("24 robot edge", robot_edge, policy, port)
     finally:
         stop.set()
         thread.join(timeout=30)
     _check(not thread.is_alive(), "the server did not stop")
+    return edge
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the robot edge against phase 17's server
+# ---------------------------------------------------------------------------
+
+CLIENT_MODES = ("sync", "smooth", "ensemble", "rtc")
+CLIENT_STEPS, CLIENT_PUBLISH_HZ, CLIENT_INFER_HZ = 50, 25.0, 4.0
+CLI_STEPS = 25
+DAGGER_FRAMES = 30
+# Keys sent after that many published frames: record, take over, resume, save; quit once the loop saved (without
+# h5py the save raises first). Frames 2-30 are recorded, 10-17 labelled interventions.
+DAGGER_KEYS = {2: " ", 10: "d", 18: "r", DAGGER_FRAMES: "s", DAGGER_FRAMES + 1: "q"}
+
+
+class _WireTimed:
+    """A wire client whose ``infer`` records each request's wall ms (no synchronize: the server runs the card)."""
+
+    def __init__(self, client):
+        self.client, self.ms = client, []
+
+    def infer(self, obs: dict) -> dict:
+        t = time.perf_counter()
+        out = self.client.infer(obs)
+        self.ms.append((time.perf_counter() - t) * 1000)
+        return out
+
+
+class _Published:
+    """A robot that keeps each published action and the time it was published, and sends its cameras HWC when
+    ``hwc`` (the DAgger collector's mp4 writer takes HWC; the client's robots send CHW)."""
+
+    def __init__(self, robot, hwc: bool = False, on_publish=None):
+        self.robot, self.hwc, self.on_publish = robot, hwc, on_publish
+        self.actions, self.times = [], []
+
+    def get_observation(self) -> dict:
+        obs = self.robot.get_observation()
+        if self.hwc:
+            obs["images"] = {c: np.ascontiguousarray(x.transpose(1, 2, 0)) for c, x in obs["images"].items()}
+        return obs
+
+    def publish_action(self, action) -> None:
+        self.times.append(time.perf_counter())
+        self.actions.append(np.array(action, copy=True))
+        self.robot.publish_action(action)
+        if self.on_publish is not None:
+            self.on_publish(len(self.actions))
+
+
+def _toolchain_probe() -> str:
+    import importlib.util
+    import os
+    import shutil
+    import sysconfig
+
+    cxx = os.environ.get("CXX", "g++")
+    found = shutil.which(cxx)
+    version = subprocess.run([found, "--version"], capture_output=True, text=True).stdout.splitlines()[0] if found else "absent"
+    include = pathlib.Path(sysconfig.get_paths()["include"])
+    return (f"{cxx}: {version}; Python.h {'present' if (include / 'Python.h').exists() else 'absent'} in {include}; "
+            + ", ".join(f"{m} {'present' if importlib.util.find_spec(m) else 'absent'}" for m in ("h5py", "cv2")))
+
+
+def robot_edge(policy, port: int) -> dict:
+    """Phase 24: the port's robot edge against phase 17's server (``pi05_rtc_flatten_fold_inference`` at full width,
+    bf16) on 127.0.0.1. The native buffers built from ``kai0_tpu_torch/native`` (build seconds, the compiler, and
+    whether ``Python.h``, ``h5py`` and ``cv2`` are here); ``make_stream_buffer`` / ``make_ensembling_buffer`` must give
+    the C++ buffers. The client's four modes in turn on ``SimRobot`` (the Agilex cameras) over the port's wire
+    client, 25 Hz publishing, 4 Hz inference for smooth and ensemble, 50 steps each: exactly 50 finite actions, the
+    requests, the publish period and the wall a request; each mode's first request captures its graphs with the
+    counts at 0 (the bucket's graphs are dropped just before), so the K1f, K2f (and, rtc, K1b) launches of the mode,
+    each > 0, are twice its captures. Then ``scripts/inference_client_torch.py --sim --mode smooth`` as a process,
+    which must exit 0. Last, the DAgger driver (``scripts/dagger_collect_torch.py``'s ``run``) over 30 frames whose
+    actions come from the server: infer, record, take over, resume, save; without ``h5py`` the save must raise
+    naming it, with it the port's ``convert_h5`` must read the episode back. Returns each mode's launches."""
+    import importlib.util
+    import tempfile
+
+    from kai0_tpu_torch import deploy, native
+    from kai0_tpu_torch.deploy import dagger, native_buffers
+    from kai0_tpu_torch.policies import graphs
+    from kai0_tpu_torch.serving.client import WebsocketClientPolicy
+    from kai0_tpu_torch.training import config as train_config
+
+    root = pathlib.Path(__file__).resolve().parent
+    t = time.perf_counter()
+    native.load()
+    load_s = time.perf_counter() - t
+    built = f"built in {native.build_seconds}s" if native.build_seconds is not None else "already built"
+    print(f"robot edge: native buffers {native.library_path().relative_to(root)} {built} (load {load_s:.2f}s); "
+          + _toolchain_probe())
+    _check(isinstance(deploy.make_stream_buffer(), native_buffers.NativeStreamActionBuffer)
+           and isinstance(deploy.make_ensembling_buffer(), native_buffers.NativeTemporalEnsemblingBuffer),
+           "make_stream_buffer / make_ensembling_buffer did not give the native buffers")
+    client = _script("inference_client_torch")
+    prompt = train_config.get_config(RTC_CONFIG).data.default_prompt
+    sample = client.SimRobot(cameras=AGILEX_CAMERAS).get_observation()
+    staged = policy.stage_inputs({**sample, "prompt": prompt})
+
+    launches = {}
+    for mode in CLIENT_MODES:
+        chunks = (None, RTC_CHUNK) if mode == "rtc" else (None,)
+        for chunk in chunks:  # the mode's first requests capture the bucket's graphs again, with the counts at 0
+            policy.graphs.pop(graphs.signature(staged, chunk), None)
+        wire = _WireTimed(WebsocketClientPolicy(host="127.0.0.1", port=port, retry_interval_s=0.2))
+        robot = _Published(client.SimRobot(cameras=AGILEX_CAMERAS))
+        common = dict(policy=wire, robot=robot, prompt=prompt, publish_rate=CLIENT_PUBLISH_HZ, max_steps=CLIENT_STEPS)
+        _reset_launches()
+        t = time.perf_counter()
+        if mode == "sync":
+            client.run_sync(**common)
+        elif mode == "smooth":
+            client.run_smooth(**common, infer_rate=CLIENT_INFER_HZ)
+        elif mode == "ensemble":
+            client.run_ensemble(**common, infer_rate=CLIENT_INFER_HZ)
+        else:
+            client.run_rtc(**common)
+        mode_s = time.perf_counter() - t
+        wire.client.close()
+        served = {k: v for k, v in _read_launches().items() if v}
+        captures = [{k: v for k, v in policy.graphs[graphs.signature(staged, c)].capture_launches.items() if v}
+                    for c in chunks]
+        twice = {k: 2 * sum(c.get(k, 0) for c in captures) for k in served}
+        need = ("flash_mha", "flash_mhsa") + (("flash_mha_bwd",) if mode == "rtc" else ())
+        _check(len(robot.actions) == CLIENT_STEPS and all(a.shape == (14,) and np.isfinite(a).all() for a in robot.actions),
+               f"client {mode}: {len(robot.actions)} actions published")
+        _check(all(served.get(k, 0) > 0 for k in need) and served == twice,
+               f"client {mode}: launches {served}, the mode's captures {captures}")
+        periods = np.diff(robot.times) * 1000
+        print(f"client {mode}: {CLIENT_STEPS} finite actions published at {CLIENT_PUBLISH_HZ:g} Hz"
+              f"{f', inference at {CLIENT_INFER_HZ:g} Hz' if mode in ('smooth', 'ensemble') else ''} in {mode_s:.2f}s; "
+              f"{len(wire.ms)} requests, wall ms a request: first {wire.ms[0]:.1f} (captures), then "
+              f"{_percentiles(wire.ms[1:]) if len(wire.ms) > 1 else 'none'}; publish period ms {_percentiles(periods)}; "
+              f"launches {served} (= the mode's captures twice)")
+        launches[mode] = served
+
+    t = time.perf_counter()
+    cli = subprocess.run([sys.executable, str(root / "scripts" / "inference_client_torch.py"), "--sim", "--mode",
+                          "smooth", "--max-steps", str(CLI_STEPS), "--host", "127.0.0.1", "--port", str(port)],
+                         capture_output=True, text=True, timeout=180, cwd=root)
+    print(f"client CLI: scripts/inference_client_torch.py --sim --mode smooth --max-steps {CLI_STEPS} exited "
+          f"{cli.returncode} in {time.perf_counter() - t:.2f}s")
+    _check(cli.returncode == 0, f"the client CLI failed:\n{cli.stderr[-3000:]}")
+
+    collect = _script("dagger_collect_torch")
+    sm = dagger.DaggerStateMachine()
+    sm.on_key("enter")
+    with tempfile.TemporaryDirectory(prefix="kai0_dagger_") as tmp:
+        collector = dagger.DAggerCollector(list(AGILEX_CAMERAS), tmp, fps=CLIENT_PUBLISH_HZ)
+
+        def keys(frames: int) -> None:
+            if frames in DAGGER_KEYS:
+                sm.on_key(DAGGER_KEYS[frames])
+
+        robot = _Published(client.SimRobot(cameras=AGILEX_CAMERAS), hwc=True, on_publish=keys)
+        wire = _WireTimed(WebsocketClientPolicy(host="127.0.0.1", port=port, retry_interval_s=0.2))
+        t = time.perf_counter()
+        error = None
+        try:
+            collect.run(wire, robot, client.SimRobot(), collector, sm, prompt, CLIENT_PUBLISH_HZ)
+        except ImportError as e:  # held to the probe's answer below
+            error = e
+        dagger_s = time.perf_counter() - t
+        wire.client.close()
+        frames = len(robot.actions)
+        if importlib.util.find_spec("h5py") is None:
+            _check(error is not None and "h5py" in str(error) and collector.frame_count == DAGGER_FRAMES - 1,
+                   f"DAgger without h5py: the save gave {error!r} with {collector.frame_count} frames")
+            outcome = f"save_episode raised as it must without h5py ({error}); {collector.frame_count} frames kept"
+        else:
+            from kai0_tpu_torch.augment import convert_h5
+
+            saved = pathlib.Path(tmp) / "episode_0.hdf5"
+            _check(error is None and saved.exists(), f"DAgger: the save failed: {error!r}")
+            meta = convert_h5.convert_h5_to_lerobot(tmp, pathlib.Path(tmp) / "lerobot", task=prompt,
+                                                    cameras=list(AGILEX_CAMERAS), fps=CLIENT_PUBLISH_HZ)
+            _check(meta.info["total_episodes"] == 1 and meta.info["total_frames"] == DAGGER_FRAMES - 1,
+                   f"DAgger: convert_h5 read {meta.info['total_frames']} frames")
+            outcome = f"saved {saved.name}, read back by convert_h5: {meta.info['total_frames']} frames"
+    # a request at frame 1 and at frame 19 (after the take-over), and with h5py one more after the save
+    _check(frames == DAGGER_FRAMES + (error is None) and len(wire.ms) == 2 + (error is None),
+           f"DAgger: {frames} frames, {len(wire.ms)} requests")
+    print(f"dagger: {frames} SimRobot frames (infer; record from frame 2, take over at 10, resume at 18, save at "
+          f"{DAGGER_FRAMES}) in {dagger_s:.2f}s, {len(wire.ms)} requests to the server (wall ms "
+          f"{[round(m, 1) for m in wire.ms]}); {outcome}")
+    return launches
 
 
 def _quantile_stats(width: int = 32) -> dict:
@@ -2271,17 +2622,19 @@ def serve_entry() -> dict:
               f"quantile norm stats under assets/{asset_id} in {time.perf_counter() - t:.1f}s")
         served = {("int8" if quantize else "bf16"): _serve_entry_once(cfg, ckpt, quantize) for quantize in (False, True)}
         launches.update({label: rec["capture"] for label, rec in served.items()})
+        launches["bf16_5step"] = served["bf16"]["five_steps"]
         launches["int8_modes"] = timed("23 (d) serving int8 modes", serve_int8_modes, cfg, ckpt, served)
         del served
         rtc_cfg = train_config.get_config(RTC_CONFIG)
-        launches["rtc_bf16"], rtc_policy, rtc_walls = _serve_rtc_once(rtc_cfg, ckpt, quantize=False)
-        launches["rtc_int8"], int8_policy, _ = _serve_rtc_once(rtc_cfg, ckpt, quantize=True)
+        launches["rtc_bf16"], rtc_policy, rtc_walls, launches["rtc_bf16_guidance5"] = _serve_rtc_once(
+            rtc_cfg, ckpt, quantize=False)
+        launches["rtc_int8"], int8_policy, _, _ = _serve_rtc_once(rtc_cfg, ckpt, quantize=True)
         del int8_policy
         torch.cuda.empty_cache()
         rtc_card_vs_host()
         batched = serve_batched(ckpt)
         launches["b8"], launches["b4_int8"] = batched["bf16"], batched["int8"]
-        serve_wire(rtc_policy, rtc_walls)
+        launches["client"] = serve_wire(rtc_policy, rtc_walls)
         del rtc_policy
         torch.cuda.empty_cache()
     return launches
@@ -3259,7 +3612,7 @@ def _profile_fast(model, obs) -> None:
 def serve_fast(root: pathlib.Path) -> dict:
     """Phase 20, π₀-FAST serving: ``pi0_fast_droid`` (Gemma-2B, So400m/14, 8-dim actions over 10 steps, 250 prompt
     tokens) from a seeded ``model.safetensors`` through ``create_trained_policy``, whose sampler is eager; returns
-    one request's launches."""
+    one request's launches, and those of the same request served in int8 (``serve_fast_int8``)."""
     from kai0_tpu_torch.models.model import Observation
     from kai0_tpu_torch.models.pi0_fast import Pi0FAST
     from kai0_tpu_torch.policies import policy_config
@@ -3310,9 +3663,117 @@ def serve_fast(root: pathlib.Path) -> dict:
           f"{[round(m, 2) for m in infer_ms]}; prefill ms (median of 3) {prefill:.2f}; ms a decode step "
           f"{[round(m, 3) for m in step_ms]}; launches a request {launches[0]} (prefill 18 K1f, each decode step 18); "
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    actions = out["actions"]
     del policy, obs
     torch.cuda.empty_cache()
-    return launches[0]
+    return launches[0], serve_fast_int8(cfg, ckpt, requests[0], actions)
+
+
+def serve_fast_int8(cfg, ckpt: pathlib.Path, request: dict, bf16_actions: np.ndarray) -> dict:
+    """Phase 20, int8 π₀-FAST: ``create_trained_policy(..., quantize=True)`` on the same checkpoint serves the same
+    request (eager, greedy) with the counts at 0: per forward (the prefill, then each token fed back) 18 K1f, and per
+    layer 5 K5 and 6 K4b ``nt`` (the prefill's at M = 1,018 on ``wgmma``, a decode step's at M = 1 on split-K, as
+    a profiled prefill and decode step must show); 27 K2f. Returns the request's launches."""
+    from kai0_tpu_torch.models.model import Observation
+    from kai0_tpu_torch.policies import policy_config
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    policy = policy_config.create_trained_policy(cfg, ckpt, quantize=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    _reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = policy.infer(request)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1000
+    launches = {k: v for k, v in _read_launches().items() if v}
+    tokens = launches.get("flash_mha", 0) // 18
+    want = {"flash_mha": 18 * tokens, "flash_mhsa": 27, "row_quant": 18 * 5 * tokens, "int8_matmul": 18 * 6 * tokens}
+    _check(launches == want and 1 <= tokens <= FAST_MAX_DECODING_STEPS, f"fast int8 serving: launches {launches}")
+    actions = out["actions"]
+    _check(actions.shape == (10, 8) and np.isfinite(actions).all(), f"fast int8 serving: actions {actions.shape}")
+    obs = Observation.from_dict(_device_inputs(policy.stage_inputs(request)))
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache, prefill_len, prefix_start = policy.model.prefill(obs, FAST_MAX_DECODING_STEPS)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t) * 1000)
+    prefill = statistics.median(prefill_ms)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        policy.model.prefill(obs, FAST_MAX_DECODING_STEPS)
+        policy.model.decode_step(logits.argmax(-1), 0, cache, prefill_len, prefix_start)
+        torch.cuda.synchronize()
+    counts = _check_int8_orientations(_kernels_named(prof, "int8_mm"), "fast int8 prefill and decode step")
+    want_kernels = {"wgmma nt": 18 * 6, "wgmma nn": 0, "splitk nt": 18 * 6, "mma.sync nt": 0, "mma.sync nn": 0}
+    _check(counts == want_kernels, f"fast int8: int8 kernels of a prefill and a decode step {counts}")
+    infer_ms = out["policy_timing"]["infer_ms"]
+    print(f"fast int8 serving: create_trained_policy({FAST_CONFIG!r}, quantize=True) in {load_s:.2f}s; 1 raw DROID "
+          f"request, greedy: tokens decoded {tokens} (of {FAST_MAX_DECODING_STEPS}); wall_ms {wall:.2f}; infer_ms "
+          f"{infer_ms:.2f}; ms a token {infer_ms / tokens:.3f}; prefill ms (median of 3) {prefill:.2f}; ms a decode "
+          f"step {(infer_ms - prefill) / max(tokens - 1, 1):.3f}; launches {launches}; actions finite, max |int8 - "
+          f"bf16| {np.abs(actions - bf16_actions).max():.4e}; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del policy, obs, logits, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+FAST_PREFILL_ROWS = 1018  # pi0_fast_droid's prefill: 3 x 256 image tokens + 250 prompt tokens
+
+
+def check_fast_int8_kernels() -> dict:
+    """Phase 20: K5 and K4b (``nt``, both scales) at int8 π₀-FAST serving's shapes, every Gemma-2B site at M = 1 (a
+    decode step: split-K) and M = 1,018 (the prefill: ``wgmma``), bf16, against their plain versions (bit-equal),
+    timed beside the bound and ``torch._int_mm`` + scaling (at M = 1 none: ``torch._int_mm`` takes more than 16
+    rows). Returns K5's and K4b's records under keys suffixed ``_fast_decode`` and ``_fast_prefill`` (K5 at K =
+    2048, K4b at gate/up)."""
+    from kai0_tpu_torch.ops import int8_matmul as mm
+    from kai0_tpu_torch.ops import row_quant as rq
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    bf16, f32 = torch.bfloat16, torch.float32
+    record = {"row_quant": {}, "int8_matmul": {}}
+    for m, label in ((1, "fast_decode"), (FAST_PREFILL_ROWS, "fast_prefill")):
+        for k in (2048, 16384):
+            x = (torch.randn(m, k, generator=gen, device="cuda") * 3).to(bf16)
+            xq, sx = rq.row_quant(x)
+            ref_q, ref_s = rq.row_quant_plain(x)
+            torch.cuda.synchronize()
+            _check(torch.equal(xq, ref_q) and torch.equal(sx, ref_s), f"row_quant [{m},{k}]: not bit-equal")
+            ms, plain_ms = _cuda_ms(lambda: rq.row_quant(x), runs=10), _cuda_ms(lambda: rq.row_quant_plain(x), runs=10)
+            bound_ms = _nbytes(x, xq, sx) / HBM_BYTES_PER_S * 1e3
+            print(f"kernel row_quant [{m},{k}] bf16 ({label}): bit-equal; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={bound_ms:.4f} (bytes)")
+            if k == 2048:
+                record["row_quant"].update({f"max_abs_err_{label}": 0.0, f"ms_{label}": ms, f"plain_ms_{label}": plain_ms,
+                                            f"bound_ms_{label}": bound_ms, f"bound_by_{label}": "bytes",
+                                            f"library_ms_{label}": None})
+        for site, (k, n) in INT8_SITES["gemma_2b"][0].items():
+            w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+            sn = torch.rand(n, generator=gen, device="cuda") * 1e-3 + 1e-5
+            xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+            sx = torch.rand(m, 1, generator=gen, device="cuda") * 1e-2 + 1e-4
+            kernel = lambda: mm.int8_matmul(xq, w, sx, sn, nt=True, out_dtype=bf16)  # noqa: E731
+            plain = lambda: mm.int8_matmul_plain(xq, w, sx, sn, nt=True, out_dtype=bf16)  # noqa: E731
+            library = lambda: (torch._int_mm(xq, w.T).to(f32) * sx * sn).to(bf16)  # noqa: E731
+            out = kernel()
+            _check(torch.equal(out, plain()), f"int8_matmul gemma_2b {site} M={m}: not bit-equal")
+            if m > 16:
+                _check(torch.equal(library(), out), f"int8_matmul gemma_2b {site} M={m}: library yardstick differs")
+            ms, plain_ms = _cuda_ms(kernel, runs=10), _cuda_ms(plain, runs=10)
+            lib_ms = _cuda_ms(library, runs=10) if m > 16 else None
+            bound_ms, bound_by = _int8_bound(m, n, k, _nbytes(xq, w, sx, sn, out))
+            print(f"kernel int8_matmul gemma_2b {site} nt M={m} K={k} N={n} ({label}): bit-equal; kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} int_mm_ms={'none (M <= 16)' if lib_ms is None else f'{lib_ms:.4f}'} "
+                  f"bound_ms={bound_ms:.4f} ({bound_by})")
+            if site == "gate/up":
+                record["int8_matmul"].update({f"max_abs_err_{label}": 0.0, f"ms_{label}": ms,
+                                              f"plain_ms_{label}": plain_ms, f"bound_ms_{label}": bound_ms,
+                                              f"bound_by_{label}": bound_by, f"library_ms_{label}": lib_ms})
+    return record
 
 
 def fast_card_vs_host() -> None:
@@ -3411,18 +3872,20 @@ def pi0_and_fast() -> dict:
     record = {"flash_mha": check_fast_attention()}
     for name, numbers in check_family_attention_training().items():
         record.setdefault(name, {}).update(numbers)
+    for name, numbers in check_fast_int8_kernels().items():
+        record.setdefault(name, {}).update(numbers)
     family_gradients()
     with tempfile.TemporaryDirectory(prefix="kai0_pi0_") as root:
         root = pathlib.Path(root)
         pi0_serving = serve_pi0(root)
         shutil.rmtree(root / "pi0")
         pi0_card_vs_host()
-        fast_serving = serve_fast(root)
+        fast_serving, fast_int8_serving = serve_fast(root)
         shutil.rmtree(root / "fast")
         fast_card_vs_host()
         train = train_pi0_and_fast(root)
-    return {"pi0_serving": pi0_serving, "fast_serving": fast_serving, "pi0_train": train["pi0"],
-            "fast_train": train["fast"], "records": record}
+    return {"pi0_serving": pi0_serving, "fast_serving": fast_serving, "fast_int8_serving": fast_int8_serving,
+            "pi0_train": train["pi0"], "fast_train": train["fast"], "records": record}
 
 
 ARITH_CONFIG = "pi05_base"
@@ -4085,7 +4548,7 @@ def _with_plain_kernels(fn):
 def check_switchback_kernels() -> dict:
     """Phase 23 (c): the fused SwitchBack FFN op at full width (one chunk of 7,744 rows, D 2048, F 16384) through
     K5 and K4b and through their plain versions, on the card; K5 and K4b at SigLIP's shapes against their plain
-    versions, timed beside the bound."""
+    versions, timed beside the bound (and K4b beside ``torch._int_mm`` + scaling)."""
     from kai0_tpu_torch.ops import int8_matmul as mm
     from kai0_tpu_torch.ops import quant
     from kai0_tpu_torch.ops import row_quant as rq
@@ -4150,15 +4613,18 @@ def check_switchback_kernels() -> dict:
         dx_p = mm.int8_matmul_plain(gq, wq, sg, None, nt=False, out_dtype=bf16)
         torch.cuda.synchronize()
         _check(torch.equal(y, y_p) and torch.equal(dx, dx_p), f"int8_matmul at SigLIP's {label}: not bit-equal")
+        library = lambda: (torch._int_mm(aq, wq.T).to(torch.float32) * sa * ws.view(-1)).to(bf16)  # noqa: E731
+        _check(torch.equal(library(), y), f"int8_matmul at SigLIP's {label}: library yardstick differs")
         ms = _cuda_ms(lambda: mm.int8_matmul(aq, wq, sa, ws.view(-1), nt=True, out_dtype=bf16), runs=10)
         plain_ms = _cuda_ms(lambda: mm.int8_matmul_plain(aq, wq, sa, ws.view(-1), nt=True, out_dtype=bf16), runs=3)
+        lib_ms = _cuda_ms(library, runs=10)
         bound_ms, bound_by = _int8_bound(rows, n, k, _nbytes(aq, wq, sa, ws, y))
         rq_ms = _cuda_ms(lambda: rq.row_quant(a), runs=10)
         rq_bound = _nbytes(a, aq, sa) / HBM_BYTES_PER_S * 1e3
         print(f"kernel int8_matmul at SigLIP's {label} (K={k}, N={n}, nt and the dx): bit-equal; kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}); row_quant [{rows},{k}] "
-              f"kernel_ms={rq_ms:.4f} bound_ms={rq_bound:.4f} (bytes)")
-        record[label] = {"int8_matmul": (ms, plain_ms, bound_ms), "row_quant": (rq_ms, None, rq_bound)}
+              f"plain_ms={plain_ms:.4f} int_mm_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}); row_quant "
+              f"[{rows},{k}] kernel_ms={rq_ms:.4f} bound_ms={rq_bound:.4f} (bytes)")
+        record[label] = {"int8_matmul": (ms, plain_ms, bound_ms, lib_ms), "row_quant": (rq_ms, None, rq_bound)}
     return record
 
 
@@ -4376,6 +4842,22 @@ def main() -> int:
             _check(entry["launches_sb_train"] > 0, f"{name} was not launched by the SwitchBack full fine-tune")
             _check(name == "row_quant_colscale" or entry["launches_serving_siglip_int8"] > 0,
                    f"{name} was not launched by SigLIP + Gemma int8 serving")
+        # launches_serving_5step: phase 14's request at sample_kwargs={"num_steps": 5} (its graph's capture);
+        # launches_serving_rtc_guidance5: phase 15's guided request at max_guidance_weight=5.0 (its graph's capture);
+        # launches_fast_int8_serving: phase 20's int8 π₀-FAST request (eager: the prefill and every decode step);
+        # launches_client_<mode>: each of phase 24's client modes against the server (its graphs' captures). Each
+        # counted from 0 set just before.
+        if name in ("flash_mha", "flash_mhsa"):
+            entry["launches_serving_5step"] = entry_launches["bf16_5step"][name]
+        if name in ("flash_mha", "flash_mha_bwd", "flash_mhsa"):
+            entry["launches_serving_rtc_guidance5"] = entry_launches["rtc_bf16_guidance5"][name]
+        if name in ("flash_mha", "flash_mhsa", "row_quant", "int8_matmul"):
+            _check(families["fast_int8_serving"].get(name, 0) > 0, f"{name} was not launched by int8 FAST serving")
+            entry["launches_fast_int8_serving"] = families["fast_int8_serving"][name]
+        for mode, counts in entry_launches["client"].items():
+            if name in ("flash_mha", "flash_mhsa") or (name, mode) == ("flash_mha_bwd", "rtc"):
+                _check(counts.get(name, 0) > 0, f"{name} was not launched by the client's {mode} mode")
+                entry[f"launches_client_{mode}"] = counts[name]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

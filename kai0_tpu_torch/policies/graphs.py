@@ -1,14 +1,18 @@
 """The sampler as a CUDA graph: the port's counterpart of ``jax.jit(sample)`` (``kai0_tpu/policies/policy.py:76-79``).
 
-A ``SampleGraph`` holds one captured ``model.denoise`` of ``NUM_STEPS`` Euler steps
-(``Pi0.denoise``, or ``Pi0RTC.denoise`` for an RTC model) for one shape of the staged inputs
-(batch, prompt length, image sizes) and, for an RTC request with a previous
-chunk, one shape of that chunk (its length and guided dims): the
+A ``SampleGraph`` holds one captured ``model.denoise`` (``Pi0.denoise``, or
+``Pi0RTC.denoise`` for an RTC model) for one shape of the staged inputs
+(batch, prompt length, image sizes), one set of the sampler's static keyword
+arguments (``STATIC_SAMPLE_KWARGS``: JAX's ``Policy`` compiles one program for
+each, ``kai0_tpu/policies/policy.py:38,79``) and, for an RTC request with a
+previous chunk, one shape of that chunk (its length and guided dims): the
 uint8 → [-1, 1] map of the images, preprocessing, SigLIP, the prefix pass with
 its KV cache and every Euler step, from the staged inputs to x_0. One graph,
-not a prefix graph and a step graph replayed ``NUM_STEPS`` times: the times are
-a device tensor fixed by the step count (``Pi0.time_grid``), so nothing the host
-supplies changes between steps, and one replay is one host call.
+not a prefix graph and a step graph replayed ``num_steps`` times (``NUM_STEPS``
+unless the kwargs say otherwise): the times are a device tensor fixed by the
+step count at capture (``Pi0.time_grid``), so nothing the host supplies changes
+between steps, and one replay is one host call. Two step counts are two graphs,
+each with its own buffers.
 
 Inputs live in static device buffers, filled from pinned host buffers by
 asynchronous copies; the noise is drawn outside the graph (from the policy's
@@ -42,7 +46,9 @@ import torch
 from kai0_tpu_torch.models import model as _model
 from kai0_tpu_torch.transforms import _map_structure, flatten_dict, unflatten_dict
 
-NUM_STEPS = 10  # Euler steps of a request: Pi0.sample_actions' default
+NUM_STEPS = 10  # Euler steps of a request without ``num_steps``: Pi0.sample_actions' default
+# The sampler's keyword arguments that fix the captured work (JAX: jit's static_argnames, policy.py:38).
+STATIC_SAMPLE_KWARGS = ("num_steps", "prefix_attention_schedule", "max_guidance_weight")
 
 
 def launch_counts() -> dict[str, int]:
@@ -59,24 +65,32 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
     return torch.cuda.Stream(device)
 
 
-def signature(inputs: dict, chunk: tuple[int, int] | None = None) -> tuple:
-    """What a graph is captured for: the path, shape and dtype of every staged input, in path order, and an RTC
-    request's chunk (its length and ``provided_dim``) when it has one."""
+def signature(inputs: dict, chunk: tuple[int, int] | None = None, sample_kwargs: dict | None = None) -> tuple:
+    """What a graph is captured for: the path, shape and dtype of every staged input, in path order, the static
+    sample kwargs when there are any, and an RTC request's chunk (its length and ``provided_dim``) when it has one
+    (always the last entry)."""
     key = tuple(sorted((path, tuple(x.shape), str(x.dtype)) for path, x in flatten_dict(inputs).items()))
+    if sample_kwargs:
+        key = (*key, ("sample_kwargs", tuple(sorted(sample_kwargs.items())), "static"))
     return key if chunk is None else (*key, ("prev_action_chunk", chunk, "rtc"))
 
 
 class SampleGraph:
     """``model.denoise`` captured for inputs shaped like ``inputs`` (batched numpy, as ``Policy`` stages them).
 
-    ``chunk`` = (length, provided_dim) captures the RTC sampler guided by a previous chunk of that shape.
+    ``chunk`` = (length, provided_dim) captures the RTC sampler guided by a previous chunk of that shape;
+    ``sample_kwargs`` (names of ``STATIC_SAMPLE_KWARGS``) are the step count and the RTC sampler's schedule and
+    guidance cap that the capture runs with.
     """
 
-    def __init__(self, model, inputs: dict, chunk: tuple[int, int] | None = None):
+    def __init__(self, model, inputs: dict, chunk: tuple[int, int] | None = None, sample_kwargs: dict | None = None):
         start = time.monotonic()
         self._model = model
         self.device = model.device
-        self.key = signature(inputs, chunk)
+        statics = dict(sample_kwargs or {})
+        self.key = signature(inputs, chunk, statics)
+        self.num_steps = int(statics.pop("num_steps", NUM_STEPS))
+        self._denoise_kwargs = statics  # the RTC sampler's schedule and guidance cap
         self._host = flatten_dict(_map_structure(lambda x: torch.from_numpy(np.ascontiguousarray(x)).pin_memory(), inputs))
         self._static = {path: torch.empty_like(x, device=self.device) for path, x in self._host.items()}
         batch = next(iter(self._host.values())).shape[0]
@@ -84,7 +98,7 @@ class SampleGraph:
         self._noise = torch.zeros(shape, dtype=torch.float32, device=self.device)
         self._noise_host = torch.empty(shape, dtype=torch.float32).pin_memory()
         self._out_host = torch.empty(shape, dtype=torch.float32).pin_memory()
-        self._times = model.time_grid(NUM_STEPS)
+        self._times = model.time_grid(self.num_steps)
         self._chunk = None
         if chunk is not None:
             length, self._provided_dim = chunk
@@ -109,9 +123,9 @@ class SampleGraph:
     def _run(self) -> torch.Tensor:
         observation = _model.Observation.from_dict(unflatten_dict(self._static))
         if self._chunk is None:
-            return self._model.denoise(observation, self._noise, self._times)
+            return self._model.denoise(observation, self._noise, self._times, **self._denoise_kwargs)
         return self._model.denoise(observation, self._noise, self._times, self._chunk, self._scalars[0],
-                                   self._scalars[1], provided_dim=self._provided_dim)
+                                   self._scalars[1], provided_dim=self._provided_dim, **self._denoise_kwargs)
 
     @property
     def noise_shape(self) -> tuple[int, ...]:

@@ -16,9 +16,14 @@ bucket's graph is captured on the first request that needs it, or by
 loop ends when every row has emitted EOS, which the host reads each step, so
 there is no one graph of it to capture. Prompt buckets apply to the flow
 models only (a FAST prompt carries ``token_ar_mask``), as in JAX.
-``sample_kwargs`` go to every eager sampler call (``max_decoding_steps``,
-``temperature``); the graphs run ``graphs.NUM_STEPS`` Euler steps and take
-none. A graph's buffers serve one request
+``sample_kwargs`` go to every eager sampler call (π₀-FAST's
+``max_decoding_steps``, ``temperature``; on the CPU any key, as JAX passes
+them). A flow model takes JAX's static ones only (``graphs.STATIC_SAMPLE_KWARGS``:
+``num_steps``, and for an RTC model ``prefix_attention_schedule`` and
+``max_guidance_weight``); any other key raises ``TypeError`` naming it, as
+JAX's sampler does. On CUDA they are part of each graph's key and run at
+capture (``num_steps`` Euler steps, ``graphs.NUM_STEPS`` when absent), as
+JAX's jit compiles one program for each. A graph's buffers serve one request
 at a time: a lock serializes capture, staging, replay and fetch, so requests
 from several threads (the server's executor) each get their own actions; the
 host transforms run outside it. Tensors on the CPU run
@@ -87,9 +92,12 @@ class Policy:
         self._device = torch.device(device)
         self._graphed = self._device.type == "cuda" and config.model_type != _model.ModelType.PI0_FAST
         self._sample_kwargs = dict(sample_kwargs or {})
-        if self._graphed and self._sample_kwargs:
-            raise ValueError(f"sample_kwargs {sorted(self._sample_kwargs)}: the graphed sampler takes none "
-                             f"(it runs {_graphs.NUM_STEPS} Euler steps)")
+        if self._graphed:
+            accepted = _graphs.STATIC_SAMPLE_KWARGS if isinstance(model, _pi0_rtc.Pi0RTC) else ("num_steps",)
+            unknown = sorted(set(self._sample_kwargs) - set(accepted))
+            if unknown:
+                raise TypeError(f"sample_actions() of {type(model).__name__} got unexpected keyword arguments {unknown}: "
+                                f"its graphed sampler takes {accepted}")
         self._generator = generator
         self._input_transform = _transforms.compose(transforms)
         self._output_transform = _transforms.compose(output_transforms)
@@ -118,12 +126,12 @@ class Policy:
         return self._graphs
 
     def graph_for(self, inputs: dict, chunk: tuple[int, int] | None = None) -> _graphs.SampleGraph:
-        """The graph for batched staged ``inputs`` (and an RTC chunk's (length, provided_dim)), captured on first
-        use."""
-        key = _graphs.signature(inputs, chunk)
+        """The graph for batched staged ``inputs`` (and an RTC chunk's (length, provided_dim)) at the policy's
+        ``sample_kwargs``, captured on first use."""
+        key = _graphs.signature(inputs, chunk, self._sample_kwargs)
         with self._graph_lock:
             if key not in self._graphs:
-                graph = _graphs.SampleGraph(self._model, inputs, chunk)
+                graph = _graphs.SampleGraph(self._model, inputs, chunk, self._sample_kwargs)
                 self._graphs[graph.key] = graph
                 logger.info(f"Captured the sampler for {dict((p, s) for p, s, _ in key)} in {graph.capture_seconds:.1f}s")
             return self._graphs[key]
@@ -246,8 +254,9 @@ class Policy:
         pass
 
     def warmup(self, example: dict | None = None) -> float:
-        """Capture the sampler at batch 1 for every prompt bucket and the full prompt length (from the model config's
-        ``fake_obs``), an RTC model's also guided by a chunk of ``action_horizon`` rows, then serve ``example``
+        """Capture the sampler at batch 1 and the policy's ``sample_kwargs`` for every prompt bucket and the full
+        prompt length (from the model config's ``fake_obs``), an RTC model's also guided by a chunk of
+        ``action_horizon`` rows, then serve ``example``
         through the whole chain; returns the seconds taken. Captures nothing on the CPU or for a FAST model."""
         start = time.monotonic()
         if self._graphed:

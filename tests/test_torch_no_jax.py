@@ -60,7 +60,8 @@ def test_the_port_imports_neither_jax_nor_the_jax_package():
                                          "dump_data_torch.py", "compute_norm_stats_torch.py",
                                          "compute_norm_stats_fast_torch.py", "space_mirroring_torch.py",
                                          "time_scaling_torch.py", "convert_h5_lerobot_torch.py",
-                                         "merge_lerobot_torch.py", "split_lerobot_torch.py"}
+                                         "merge_lerobot_torch.py", "split_lerobot_torch.py",
+                                         "inference_client_torch.py", "dagger_collect_torch.py"}
 
 
 def test_no_import_statement_of_jax_or_the_jax_package_at_any_depth():
