@@ -191,7 +191,8 @@ Phases, none of which catches an error (any failure exits non-zero):
     bytes per request and reply, and 10 RTC rounds over the wire.
 18. Training through the entry point, at full width: an import probe of
     ``pyarrow``, ``cv2``, ``av``, ``torchvision`` and ``decord`` (printed: what
-    could read LeRobot parquet and mp4 here); the free disk of the temporary
+    could read LeRobot parquet and mp4 here) and a look-up of ``tensorflow``
+    and ``tensorflow_datasets`` (the RLDS stream's); the free disk of the temporary
     directory, which must hold the bf16 weights and two checkpoints (the run
     fails otherwise, saying how many bytes it needs); a seeded bf16 π₀.₅
     written to ``model.safetensors``. ``train_lib.main`` on ``pi05_base``
@@ -201,15 +202,19 @@ Phases, none of which catches an error (any failure exits non-zero):
     wait and the launches of every kernel, which must be phase 9's a step;
     the save's seconds and bytes. ``checkpoints.restore_state`` of step 3
     into a fresh state must give main's state bit for bit (parameters, int8
-    codes and scales, count, step). ``scripts/train_torch.py pi05_base ...
-    --resume --num_train_steps=6`` in a subprocess must restore step 3, log
-    steps 4 and 5, append them to ``metrics.jsonl`` and exit 0 (wandb, if
-    it imports, is disabled: the machine has no network). The LoRA + int8
-    fine-tune (``gemma_2b_lora`` + ``gemma_300m_lora``, ``quantize_frozen``)
-    at full width, depth 2, batch 2: 4 steps, then a resume to 6 in process,
-    whose requantized int8 codes must lie within one step of the codes saved
-    (the count that moved is printed). Last, ``create_trained_policy(
-    get_config("pi05_flatten_fold_normal"), "<checkpoints>/5")`` with phase
+    codes and scales, count, step); wandb, if it imports, is disabled (the
+    machine has no network). The LoRA + int8
+    fine-tune (``gemma_2b_lora`` + ``gemma_300m_lora``, ``quantize_frozen``,
+    int8 moments) at full width, depth 2, batch 2: 4 steps in process; a
+    restore of step 3, whose requantized int8 codes must lie within one step
+    of the codes saved (the count that moved is printed); then
+    ``scripts/train_torch.py pi05_lora_int8_depth2 ... --resume
+    --num_train_steps=6 --optimizer.state_dtype=int8 --param_dtype=none`` in
+    a child process (the depth-2 config registered under that name first)
+    must restore step 3, log steps 4 and 5, append them to ``metrics.jsonl``,
+    save step 5 and exit 0; the LoRA run comes first, and the child runs
+    beside the full-width run above. ``create_trained_policy(
+    get_config("pi05_flatten_fold_normal"), "<checkpoints>/3")`` with phase
     14's synthetic norm stats serves one raw Agilex request: finite (50, 14)
     actions, and the loaded tensors bit-equal to the checkpoint's. The
     checkpoints are deleted at the end.
@@ -282,25 +287,34 @@ Phases, none of which catches an error (any failure exits non-zero):
 21. Model Arithmetic through the port's entry points, at full width: K1f /
     K1b at B=8 T=S=1018 and K2f / K2b at [24,16,256,72] (the batch of 8 the
     ensemble runs) in bf16 against their plain versions with phase 6's
-    tolerances; 3 ``pi05_base`` checkpoints in bf16 (a seeded base and two
-    copies moved by seeded noise of 1% of each leaf's std: fine-tunes of one
-    base, which kai0 mixes); ``scripts/dump_data_torch.py`` dumps 4 batches
+    tolerances; 2 ``pi05_base`` checkpoints in bf16 (a seeded base and a
+    copy moved by seeded noise of 1% of each leaf's std: fine-tunes of one
+    base, which kai0 mixes); ``scripts/dump_data_torch.py`` dumps 2 batches
     of 8 from ``FakeDataset``; ``scripts/model_arithmetic_torch.py`` runs
-    gradient descent for 3 iterations, then its f64 mix and save, with the
+    gradient descent for 2 iterations, then its f64 mix and save, with the
     counts at 0 just before: load seconds and bytes, ms a GD iteration, of the
     mix and of the projections, peak GiB, the f64 mix's and the save's seconds
-    and bytes, and launches of 3 x 4 x phase 9's attention counts a step.
+    and bytes, and launches of 2 x 2 x phase 9's attention counts a step.
     Then an ``Ensemble`` called directly gives the vertex losses (ms a loss
-    evaluation, 72 K1f and 108 K2f each), ``inverse_loss`` and ``greedy``
+    evaluation, 36 K1f and 54 K2f each), ``inverse_loss`` and ``greedy``
     (grid 2) weights. Checks: every set of weights on the simplex; gradient
     descent's loss at or under its uniform start's; greedy's at or under the
     best vertex's; the saved tensors bit-equal to the host's f64 mix on a
     seeded sample of 64 keys covering every dtype; a ``Pi0`` loaded from the
     mixed ``model.safetensors`` gives, on the same draws, the ensemble's loss
     at the same weights within ``ARITH_MIXED_LOSS_RTOL`` (the reason is
-    there). Last, two depth-2 checkpoints, f32 compute, batch 2, fixed draws:
+    there). Then (g) two depth-2 checkpoints, f32 compute, batch 1, fixed draws:
     the card's ``Ensemble`` against the host's, vertex losses and the loss
     at w = (0.3, 0.7) within 1e-5 relative, dL/dw within 1e-3 x its max.
+    (h) The other families: two full-width bf16 checkpoints each of
+    π₀-FAST (``pi0_fast_libero``'s model) and of the advantage estimator
+    (``ADVANTAGE_TORCH_*``'s), an ``Ensemble`` of each (the config's model
+    class; FAST's batches carry no draws) over 2 seeded batches of 8, 2
+    gradient-descent iterations with the counts at 0 just before: 2 x 2 x
+    phase 9's attention counts, weights on the simplex, the best loss at or
+    under the uniform start's; then each family's card against the host at
+    depth 2 as in (g) (FAST at a 64-token prompt). The π₀.₅ checkpoints are
+    deleted beside (g) and (h).
 22. Train-Deploy Alignment's data side on the card's machine: phase 18's
     probe of ``pandas``, ``h5py`` and ``tqdm`` (the JAX package's data tools
     use them; the port does not); phase 19's writer makes a 2 x 50-frame Agilex dataset
@@ -343,7 +357,17 @@ Phases, none of which catches an error (any failure exits non-zero):
     launch in a weight-only request, SigLIP + Gemma int8 launching 163 more
     of each than Gemma-only int8 (27 layers x 6 projections and the head),
     the actions within phase 11's int8 bound of phase 14's bf16 actions,
-    ``infer_ms`` p50 / p90 beside phase 14's bf16 and int8.
+    ``infer_ms`` p50 / p90 beside phase 14's bf16 and int8; (e) inside phase
+    14 too: ``create_trained_policy`` with ``knobs.int8_sb_gemma="ffn"`` (no
+    ``quantize``: SwitchBack in serving, as JAX's knobs make its models trace
+    it) on the same checkpoint and requests through the graph: 108 SwitchBack
+    layers, the capture's K5 and K4b launches as ``_sb_serve_launches``
+    works them out (990 and 594 with 198 K1f and 27 K2f), the actions within
+    ``SB_SERVE_TOL`` of phase 14's bf16 policy's (the reason is there),
+    ``infer_ms`` p50 beside bf16's; K5 and K4b at the FFN shapes of that
+    request (the action expert at M = 50, Gemma-2B over bucket 64's 832
+    prefix rows) bit-equal to their plain versions, timed beside the bound
+    and ``torch._int_mm`` + scaling.
 24. The robot edge, inside phase 17, against its server (RTC's bf16 policy
     on 127.0.0.1): the C++ buffers of ``kai0_tpu_torch/native`` built from
     the checkout with g++ (seconds, ``g++ --version``, and whether
@@ -361,6 +385,16 @@ Phases, none of which catches an error (any failure exits non-zero):
     server's actions (infer, record, take over, resume, save): without
     ``h5py`` the save must raise naming it with the 29 recorded frames kept;
     with it ``convert_h5`` must read the 29 back.
+
+25. The convergence probe's ``--full-ft`` arms
+    (``scripts/check_convergence_onchip_torch.run``) at full width, batch
+    12, 2 chunks of 2 steps each: ClipSGD, bf16 parameters, no EMA, with
+    the script's SwitchBack on the Gemma FFN (``bench_defaults.FULLFT_KNOBS``)
+    and with bf16 products (``KAI0_INT8_SB_GEMMA=0``): finite losses read
+    once a chunk, the launches of the 4 steps 4 times phase 9's a step
+    without K3 (plus ``_sb_step_launches`` at batch 12 for SwitchBack), and step 0 of the two
+    arms within phase 23 (a)'s 5%. The 100- to 300-step trajectories are
+    the script's own runs (PERF.md).
 
 Build: ptxas's register and spill lines of every kernel are printed; the
 tensor-core attention kernels, the ``wgmma`` and split int8 kernels, the
@@ -408,7 +442,11 @@ request); phase 14's ``launches_serving_5step`` and phase 15's
 ``launches_fast_int8_serving`` (K1f, K2f, K5, K4b) and K5's and K4b's numbers
 at its decode and prefill shapes under keys suffixed ``_fast_decode`` and
 ``_fast_prefill``, and phase 24's ``launches_client_<mode>`` for each client
-mode (K1f, K2f; K1b for rtc).
+mode (K1f, K2f; K1b for rtc); phase 23 (e)'s ``launches_serving_sb`` (K1f,
+K2f, K5, K4b: its graph's capture) and, under ``sb_serving``, K5's and K4b's
+times at its shapes; phase 21 (h)'s ``launches_arithmetic_fast_gd_iteration``
+and ``launches_arithmetic_estimator_gd_iteration``; phase 25's
+``launches_convergence_sb_step`` (a step of the SwitchBack ``--full-ft`` arm).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -2624,6 +2662,7 @@ def serve_entry() -> dict:
         launches.update({label: rec["capture"] for label, rec in served.items()})
         launches["bf16_5step"] = served["bf16"]["five_steps"]
         launches["int8_modes"] = timed("23 (d) serving int8 modes", serve_int8_modes, cfg, ckpt, served)
+        launches["switchback"] = timed("23 (e) switchback serving", serve_switchback, cfg, ckpt, served)
         del served
         rtc_cfg = train_config.get_config(RTC_CONFIG)
         launches["rtc_bf16"], rtc_policy, rtc_walls, launches["rtc_bf16_guidance5"] = _serve_rtc_once(
@@ -2640,12 +2679,15 @@ def serve_entry() -> dict:
     return launches
 
 
-TRAIN_ENTRY_STEPS, TRAIN_ENTRY_RESUMED = 4, 6  # the first run's steps, and the step count the resume runs to
+TRAIN_ENTRY_STEPS, TRAIN_ENTRY_RESUMED = 4, 6  # the first run's steps, and the step count the LoRA resume runs to
 # Launches of one full fine-tune step at batch 32 (phase 9's), which every step of the entry's first run must make.
 TRAIN_STEP_LAUNCHES = {"flash_mha": 36, "flash_mha_bwd": 18, "flash_mhsa": 54, "flash_mhsa_bwd": 27, "adam_q8": 1,
                        "row_quant": 0, "row_quant_colscale": 0, "int8_matmul": 0, "int8_matmul_lora": 0}
-# What could read and decode LeRobot data here, and what the JAX package's data tools use (not promised here).
-DECODER_PROBE = ("pyarrow", "cv2", "av", "torchvision", "decord", "pandas", "h5py", "tqdm")
+# What could read and decode LeRobot data here, what the JAX package's data tools use (not promised here), and
+# what the RLDS stream (ROADMAP item 4) would need; those two are looked up, not imported.
+DECODER_PROBE = ("pyarrow", "cv2", "av", "torchvision", "decord", "pandas", "h5py", "tqdm", "tensorflow",
+                 "tensorflow_datasets")
+PROBE_BY_METADATA = ("tensorflow", "tensorflow_datasets")
 
 
 _PROBED: dict = {}
@@ -2656,8 +2698,19 @@ def _probe(modules) -> dict:
     run (phase 22 reads what phase 18 found)."""
     import importlib
 
+    import importlib.metadata
+    import importlib.util
+
     for module in modules:
-        if module not in _PROBED:
+        if module not in _PROBED and module in PROBE_BY_METADATA:  # found, not imported: TensorFlow would take the card
+            if importlib.util.find_spec(module) is None:
+                _PROBED[module] = "absent (no module)"
+            else:
+                try:
+                    _PROBED[module] = importlib.metadata.version(module)
+                except importlib.metadata.PackageNotFoundError:
+                    _PROBED[module] = "present"
+        elif module not in _PROBED:
             try:
                 _PROBED[module] = getattr(importlib.import_module(module), "__version__", "present")
             except ImportError as e:
@@ -2728,8 +2781,8 @@ def _differing(a: dict, b: dict) -> list[str]:
 
 
 def train_entry() -> dict:
-    """Phase 18: training through the entry point (``train_lib.main`` and ``scripts/train_torch.py``) at full width,
-    its checkpoints, resume and serving; returns the launches of the first run's 4 steps."""
+    """Phase 18: training through the entry point (``train_lib.main``) at full width, its checkpoints, restore, the
+    LoRA + int8 resume and serving; returns the launches of the first run's 4 steps."""
     import os
     import shutil
     import tempfile
@@ -2769,107 +2822,122 @@ def train_entry() -> dict:
         print(f"train entry: seeded bf16 pi05 written to {weights.name} ({weights.stat().st_size / 1e9:.3f} GB) in "
               f"{time.perf_counter() - t:.1f}s")
 
-        # First run: train_lib.main in process from the weights, 4 steps, the save at step 3.
-        config = _train_entry_config(base, str(root / "checkpoints"),
-                                     weight_loader=weight_loaders.CheckpointWeightLoader(str(weights)))
-        print(f"train entry: train_lib.main('pi05_base', batch {TRAIN_BATCH}, {TRAIN_ENTRY_STEPS} steps, bf16 "
-              f"parameters, int8 moments, no EMA, 2 loader workers, CheckpointWeightLoader)")
-        _reset_launches()
-        recorder = _StepRecorder("main", TRAIN_BATCH, TRAIN_STEP_LAUNCHES)
-        t = time.perf_counter()
-        recorder.start()
-        model, state = train_lib.main(config, on_step=recorder)
-        total_s = time.perf_counter() - t
-        launches = _read_launches()
-        walls = [r["wall_ms"] for r in recorder.rows[1:]]
-        save = recorder.rows[-1]
-        print(f"  main: {total_s:.1f}s in all; median wall_ms over steps 1-{TRAIN_ENTRY_STEPS - 1} = "
-              f"{statistics.median(walls):.2f} ({TRAIN_BATCH / statistics.median(walls) * 1000:.3f} samples/s); "
-              f"loader wait ms {[round(r['loader_wait_ms'], 3) for r in recorder.rows]}; save of step "
-              f"{save['step']}: {save['save_s']:.3f}s, {save['save_bytes']} bytes; launches over "
-              f"{TRAIN_ENTRY_STEPS} steps {launches}")
-        _check(state.step == TRAIN_ENTRY_STEPS and "save_s" in save, f"main ended at step {state.step}")
+        # The LoRA run first: its resume through the script then runs in a child beside the main run's start.
+        launches_lora, resume = _train_entry_lora(root, weights)
+        try:
+            # First run: train_lib.main in process from the weights, 4 steps, the save at step 3.
+            config = _train_entry_config(base, str(root / "checkpoints"),
+                                         weight_loader=weight_loaders.CheckpointWeightLoader(str(weights)))
+            print(f"train entry: train_lib.main('pi05_base', batch {TRAIN_BATCH}, {TRAIN_ENTRY_STEPS} steps, bf16 "
+                  f"parameters, int8 moments, no EMA, 2 loader workers, CheckpointWeightLoader)")
+            _reset_launches()
+            recorder = _StepRecorder("main", TRAIN_BATCH, TRAIN_STEP_LAUNCHES)
+            t = time.perf_counter()
+            recorder.start()
+            model, state = train_lib.main(config, on_step=recorder)
+            total_s = time.perf_counter() - t
+            launches = _read_launches()
+            walls = [r["wall_ms"] for r in recorder.rows[1:]]
+            save = recorder.rows[-1]
+            print(f"  main: {total_s:.1f}s in all; median wall_ms over steps 1-{TRAIN_ENTRY_STEPS - 1} = "
+                  f"{statistics.median(walls):.2f} ({TRAIN_BATCH / statistics.median(walls) * 1000:.3f} samples/s); "
+                  f"loader wait ms {[round(r['loader_wait_ms'], 3) for r in recorder.rows]}; save of step "
+                  f"{save['step']}: {save['save_s']:.3f}s, {save['save_bytes']} bytes; launches over "
+                  f"{TRAIN_ENTRY_STEPS} steps {launches}; the LoRA resume's child "
+                  f"{'still running' if resume[0].poll() is None else 'ended'} when main returned")
+            _check(state.step == TRAIN_ENTRY_STEPS and "save_s" in save, f"main ended at step {state.step}")
 
-        # Restore step 3 into a fresh state: bit for bit the state main returned.
-        manager = checkpoints.CheckpointManager(config.checkpoint_dir, keep_period=config.keep_period)
-        fresh = Pi0(base.model, device="cuda", param_dtype=torch.bfloat16)
-        fresh_state = train_lib.init_train_state(fresh, config, resume=True)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        restored = checkpoints.restore_state(manager, fresh, fresh_state, step=TRAIN_ENTRY_STEPS - 1)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t
-        step_bytes = sum(f.stat().st_size for f in manager.step_dir(TRAIN_ENTRY_STEPS - 1).rglob("*") if f.is_file())
-        diff = (_differing(restored.params, state.params) + _differing(restored.opt_state["mu"], state.opt_state["mu"])
-                + _differing(restored.opt_state["nu"], state.opt_state["nu"]))
-        print(f"  restore of step {TRAIN_ENTRY_STEPS - 1}: {restore_s:.3f}s, {step_bytes} bytes; {len(state.params)} "
-              f"parameters and {2 * len(state.opt_state['mu'])} int8 moments (codes and scales) against main's state: "
-              f"{len(diff)} differ; count {restored.opt_state['count']}, step {restored.step}")
-        _check(not diff and restored.step == state.step and restored.opt_state["count"] == state.opt_state["count"],
-               f"restored state differs from main's: {diff[:5]}")
-        del model, state, fresh, fresh_state, restored
-        torch.cuda.empty_cache()
+            # Restore step 3 into a fresh state: bit for bit the state main returned.
+            manager = checkpoints.CheckpointManager(config.checkpoint_dir, keep_period=config.keep_period)
+            fresh = Pi0(base.model, device="cuda", param_dtype=torch.bfloat16)
+            fresh_state = train_lib.init_train_state(fresh, config, resume=True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            restored = checkpoints.restore_state(manager, fresh, fresh_state, step=TRAIN_ENTRY_STEPS - 1)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t
+            step_dir = manager.step_dir(TRAIN_ENTRY_STEPS - 1)
+            step_bytes = sum(f.stat().st_size for f in step_dir.rglob("*") if f.is_file())
+            diff = (_differing(restored.params, state.params)
+                    + _differing(restored.opt_state["mu"], state.opt_state["mu"])
+                    + _differing(restored.opt_state["nu"], state.opt_state["nu"]))
+            print(f"  restore of step {TRAIN_ENTRY_STEPS - 1}: {restore_s:.3f}s, {step_bytes} bytes; "
+                  f"{len(state.params)} parameters and {2 * len(state.opt_state['mu'])} int8 moments (codes and "
+                  f"scales) against main's state: {len(diff)} differ; count {restored.opt_state['count']}, step "
+                  f"{restored.step}")
+            _check(not diff and restored.step == state.step
+                   and restored.opt_state["count"] == state.opt_state["count"],
+                   f"restored state differs from main's: {diff[:5]}")
+            del model, state, fresh, fresh_state, restored
+            torch.cuda.empty_cache()
 
-        # Resume through the script, as a user would: 2 more steps, no starting weights.
-        argv = [sys.executable, "scripts/train_torch.py", "pi05_base", "--exp_name=entry",
-                f"--checkpoint_base_dir={root / 'checkpoints'}", "--resume", f"--num_train_steps={TRAIN_ENTRY_RESUMED}",
-                f"--batch_size={TRAIN_BATCH}", "--log_interval=1", "--save_interval=100", "--num_workers=2",
-                "--param_dtype=bfloat16", "--optimizer.state_dtype=int8", "--ema_decay=none", "--wandb_enabled=true"]
-        t = time.perf_counter()
-        out = subprocess.run(argv, capture_output=True, text=True, timeout=600,
-                             cwd=pathlib.Path(__file__).resolve().parent)
-        script_s = time.perf_counter() - t
-        logged = [line.split("[I] ")[-1].split("  ")[0] for line in out.stderr.splitlines()
-                  if " Step " in line or "Saved step" in line or "Restored step" in line]
-        print(f"  scripts/train_torch.py --resume --num_train_steps={TRAIN_ENTRY_RESUMED}: rc {out.returncode} in "
-              f"{script_s:.1f}s; " + "; ".join(logged))
-        _check(out.returncode == 0, f"the resume through the script failed:\n{out.stderr[-4000:]}")
-        metrics = [json.loads(line) for line in (config.checkpoint_dir / "metrics.jsonl").read_text().splitlines()]
-        _check([m["step"] for m in metrics] == list(range(TRAIN_ENTRY_RESUMED))
-               and any("Restored step 3" in line for line in logged), f"metrics.jsonl steps {[m['step'] for m in metrics]}")
-        print(f"  metrics.jsonl: {len(metrics)} records, steps {[m['step'] for m in metrics]}, keys {list(metrics[0])}")
-
-        launches_lora = _train_entry_lora(root, weights, base)
-
-        # Serve the resumed checkpoint through the kai0 task config.
-        step_dir = manager.step_dir(TRAIN_ENTRY_RESUMED - 1)
-        serve_cfg = train_config.get_config(ENTRY_CONFIG)
-        asset_id = serve_cfg.data.create(serve_cfg.assets_dirs, serve_cfg.model).asset_id
-        normalize.save(step_dir / "assets" / asset_id, _quantile_stats())
-        t = time.perf_counter()
-        policy = policy_config.create_trained_policy(serve_cfg, step_dir)
-        request = _agilex_requests(serve_cfg, np.random.default_rng(18), 1)[0]
-        actions = policy.infer(request, noise=np.random.default_rng(18).standard_normal((50, 32)).astype(np.float32))[
-            "actions"]
-        serve_s = time.perf_counter() - t
-        trained = interop.read_safetensors(step_dir / interop.CHECKPOINT_FILE)
-        loaded = policy._model.state_dict()
-        diff = _differing({k: v.cpu() for k, v in loaded.items()}, trained)
-        print(f"  create_trained_policy({ENTRY_CONFIG!r}, '<checkpoints>/{step_dir.name}') and one raw Agilex request in "
-              f"{serve_s:.1f}s: actions {actions.shape}, finite {bool(np.isfinite(actions).all())}, max |a| "
-              f"{np.abs(actions).max():.4f}; {len(loaded)} loaded tensors against the checkpoint: {len(diff)} differ")
-        _check(actions.shape == (50, 14) and np.isfinite(actions).all() and not diff,
-               f"serving the trained checkpoint: {actions.shape}, differing {diff[:5]}")
-        del policy, loaded, trained
-        torch.cuda.empty_cache()
+            # Serve the restored step through the kai0 task config.
+            serve_cfg = train_config.get_config(ENTRY_CONFIG)
+            asset_id = serve_cfg.data.create(serve_cfg.assets_dirs, serve_cfg.model).asset_id
+            normalize.save(step_dir / "assets" / asset_id, _quantile_stats())
+            t = time.perf_counter()
+            policy = policy_config.create_trained_policy(serve_cfg, step_dir)
+            request = _agilex_requests(serve_cfg, np.random.default_rng(18), 1)[0]
+            noise = np.random.default_rng(18).standard_normal((50, 32)).astype(np.float32)
+            actions = policy.infer(request, noise=noise)["actions"]
+            serve_s = time.perf_counter() - t
+            trained = interop.read_safetensors(step_dir / interop.CHECKPOINT_FILE)
+            loaded = policy._model.state_dict()
+            diff = _differing({k: v.cpu() for k, v in loaded.items()}, trained)
+            print(f"  create_trained_policy({ENTRY_CONFIG!r}, '<checkpoints>/{step_dir.name}') and one raw Agilex "
+                  f"request in {serve_s:.1f}s: actions {actions.shape}, finite {bool(np.isfinite(actions).all())}, "
+                  f"max |a| {np.abs(actions).max():.4f}; {len(loaded)} loaded tensors against the checkpoint: "
+                  f"{len(diff)} differ")
+            _check(actions.shape == (50, 14) and np.isfinite(actions).all() and not diff,
+                   f"serving the trained checkpoint: {actions.shape}, differing {diff[:5]}")
+            del policy, loaded, trained
+            torch.cuda.empty_cache()
+        except BaseException:
+            resume[0].kill()
+            resume[0].wait()
+            raise
+        _train_entry_lora_resumed(*resume)
     print(f"train entry: checkpoints deleted; {torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated")
     return {"full": launches, "lora_int8": launches_lora}
 
 
-def _train_entry_lora(root: pathlib.Path, weights: pathlib.Path, base) -> dict:
-    """Phase 18's LoRA + int8 run and resume in process at full width, depth 2, batch 2: the requantized base
-    within one int8 step of the codes saved; returns the launches of the first run."""
-    from kai0_tpu_torch.ops import quant
-    from kai0_tpu_torch.training import optimizer, train_lib, weight_loaders
+LORA_ENTRY_CONFIG = "pi05_lora_int8_depth2"
+
+# ``scripts/train_torch.py`` run as ``__main__`` in a child, with phase 18's depth-2 LoRA config registered under its
+# name first: the registry names no config of that depth.
+_TRAIN_SCRIPT_CHILD = """
+import runpy, sys
+sys.path.insert(0, {repo!r})
+import chip_smoke
+from kai0_tpu_torch.training import config
+config.registry()[chip_smoke.LORA_ENTRY_CONFIG] = chip_smoke.lora_entry_base()
+sys.argv = {argv!r}
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+def lora_entry_base():
+    """``pi05_base`` with phase 18's LoRA model: rank 16 + rank 32 adapters at full width, depth 2."""
+    from kai0_tpu_torch.training import config as train_config
 
     model_config = _cut_depth_config(2, pi05=True, paligemma_variant="gemma_2b_lora",
                                      action_expert_variant="gemma_300m_lora")
+    return dataclasses.replace(train_config.get_config("pi05_base"), name=LORA_ENTRY_CONFIG, model=model_config)
+
+
+def _train_entry_lora(root: pathlib.Path, weights: pathlib.Path) -> tuple[dict, tuple]:
+    """Phase 18's LoRA + int8 run at full width, depth 2, batch 2, int8 moments: 4 steps in process, a restore of the
+    step saved whose requantized base lies within one int8 step of the codes saved, and then the resume to 6 through
+    ``scripts/train_torch.py`` in a child, started here and read by ``_train_entry_lora_resumed``. Returns the
+    launches of the first run, and the child with its start and the run's checkpoint directory."""
+    from kai0_tpu_torch.ops import quant
+    from kai0_tpu_torch.training import checkpoints, train_lib, weight_loaders
+
     config = _train_entry_config(
-        dataclasses.replace(base, name="pi05_lora_int8_depth2", model=model_config), str(root / "checkpoints"),
-        batch_size=2, num_workers=0, param_dtype=None, optimizer=optimizer.AdamW(state_dtype="bfloat16"),
+        lora_entry_base(), str(root / "checkpoints"), batch_size=2, num_workers=0, param_dtype=None,
         quantize_frozen=True, weight_loader=weight_loaders.CheckpointWeightLoader(str(weights)))
-    print(f"train entry: LoRA (rank 16 + rank 32) over an int8 base, depth 2, batch 2, {TRAIN_ENTRY_STEPS} steps, "
-          f"then resume to {TRAIN_ENTRY_RESUMED}, in process")
+    print(f"train entry: LoRA (rank 16 + rank 32) over an int8 base, depth 2, batch 2, int8 moments, "
+          f"{TRAIN_ENTRY_STEPS} steps in process, then resume to {TRAIN_ENTRY_RESUMED} through scripts/train_torch.py")
     _reset_launches()
     recorder = _StepRecorder("lora", config.batch_size, None)
     recorder.start()
@@ -2877,24 +2945,59 @@ def _train_entry_lora(root: pathlib.Path, weights: pathlib.Path, base) -> dict:
     launches = _read_launches()
     codes = {name: m.qweight.clone() for name, m in model.named_modules() if quant.is_quant(m)}
     del model, state
-    recorder = _StepRecorder("lora resume", config.batch_size, None)
-    recorder.start()
-    model, state = train_lib.main(dataclasses.replace(config, resume=True, num_train_steps=TRAIN_ENTRY_RESUMED),
-                                  on_step=recorder)
-    moved, worst, total = 0, 0, 0
-    for name, m in model.named_modules():
+    fresh = train_lib.create_model(config)
+    manager = checkpoints.CheckpointManager(config.checkpoint_dir, keep_period=config.keep_period)
+    restored = checkpoints.restore_state(manager, fresh, train_lib.init_train_state(fresh, config, resume=True),
+                                         step=TRAIN_ENTRY_STEPS - 1)
+    moved, worst, total, held = 0, 0, 0, 0
+    for name, m in fresh.named_modules():
         if quant.is_quant(m):
             d = (m.qweight.to(torch.int32) - codes[name].to(torch.int32)).abs()
             moved, worst, total = moved + int((d > 0).sum()), max(worst, int(d.max())), total + d.numel()
-    print(f"  lora: launches over {TRAIN_ENTRY_STEPS} steps {launches}; after the resume, {moved} of {total} int8 codes "
-          f"of {len(codes)} holders differ from the codes saved, by at most {worst}; resumed at step {state.step}")
-    _check(state.step == TRAIN_ENTRY_RESUMED and len(codes) == 2 * 2 * 6 and worst <= 1,
-           f"LoRA + int8 resume: step {state.step}, {len(codes)} holders, codes moved by up to {worst}")
-    _check(launches["int8_matmul"] > 0 and launches["row_quant"] > 0 and launches["int8_matmul_lora"] > 0,
-           f"the LoRA + int8 run launched no int8 kernel: {launches}")
-    del model, state
+            held += 1
+    print(f"  lora: launches over {TRAIN_ENTRY_STEPS} steps {launches}; restored step {restored.step - 1}: {moved} of "
+          f"{total} int8 codes of {held} holders differ from the codes saved, by at most {worst}")
+    _check(restored.step == TRAIN_ENTRY_STEPS and held == len(codes) == 2 * 2 * 6 and worst <= 1,
+           f"LoRA + int8 restore: step {restored.step}, {held} holders, codes moved by up to {worst}")
+    _check(launches["int8_matmul"] > 0 and launches["row_quant"] > 0 and launches["int8_matmul_lora"] > 0
+           and launches["adam_q8"] == TRAIN_ENTRY_STEPS, f"the LoRA + int8 run's launches: {launches}")
+    del fresh, restored
     torch.cuda.empty_cache()
-    return launches
+
+    # The resume through the script, as a user would: the config's overrides on the command line, no weights.
+    argv = ["scripts/train_torch.py", LORA_ENTRY_CONFIG, "--exp_name=entry",
+            f"--checkpoint_base_dir={root / 'checkpoints'}", "--resume", f"--num_train_steps={TRAIN_ENTRY_RESUMED}",
+            "--batch_size=2", "--log_interval=1", "--save_interval=100", "--num_workers=0", "--param_dtype=none",
+            "--optimizer.state_dtype=int8", "--quantize_frozen=true", "--ema_decay=none", "--wandb_enabled=true"]
+    repo = pathlib.Path(__file__).resolve().parent
+    child = subprocess.Popen([sys.executable, "-c", _TRAIN_SCRIPT_CHILD.format(repo=str(repo), argv=argv)],
+                             cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return launches, (child, time.perf_counter(), config.checkpoint_dir)
+
+
+def _train_entry_lora_resumed(child: subprocess.Popen, started: float, checkpoint_dir: pathlib.Path) -> None:
+    """Wait for ``_train_entry_lora``'s resume through the script: rc 0, step 3 restored, steps 4 and 5 logged and
+    appended to ``metrics.jsonl``, step 5 saved."""
+    try:
+        _, err = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    script_s = time.perf_counter() - started
+    logged = [line.split("[I] ")[-1].split("  ")[0] for line in err.splitlines()
+              if " Step " in line or "Restored step" in line]
+    print(f"  scripts/train_torch.py {LORA_ENTRY_CONFIG} --resume --num_train_steps={TRAIN_ENTRY_RESUMED} "
+          f"--optimizer.state_dtype=int8 ...: rc {child.returncode} in {script_s:.1f}s (beside the full-width run); "
+          + "; ".join(logged))
+    _check(child.returncode == 0, f"the resume through the script failed:\n{err[-4000:]}")
+    metrics = [json.loads(line) for line in (checkpoint_dir / "metrics.jsonl").read_text().splitlines()]
+    steps = [m["step"] for m in metrics]
+    saved = sorted(int(d.name) for d in checkpoint_dir.iterdir() if d.name.isdigit())
+    print(f"  metrics.jsonl: {len(metrics)} records, steps {steps}, keys {list(metrics[0])}; steps saved {saved}")
+    _check(steps == list(range(TRAIN_ENTRY_RESUMED)) and saved == [TRAIN_ENTRY_RESUMED - 1]
+           and any(f"Restored step {TRAIN_ENTRY_STEPS - 1}" in line for line in logged),
+           f"the resume through the script: metrics.jsonl steps {steps}, steps saved {saved}")
 
 
 ADVANTAGE_CONFIG, PI06_CONFIG = "ADVANTAGE_TORCH_KAI0_FLATTEN_FOLD", "ADVANTAGE_TORCH_PI06_FLATTEN_FOLD"
@@ -3889,16 +3992,20 @@ def pi0_and_fast() -> dict:
 
 
 ARITH_CONFIG = "pi05_base"
-ARITH_CHECKPOINTS = 3
+ARITH_CHECKPOINTS = 2  # two, so that the phase's time also pays for (h)
+# Phase 21 (h): the other model families, 2 checkpoints each, 2 batches of ARITH_BATCH, 2 gradient-descent iterations.
+ARITH_FAMILIES = {"fast": "pi0_fast_libero", "estimator": "ADVANTAGE_TORCH_KAI0_FLATTEN_FOLD"}
+ARITH_FAMILY_CHECKPOINTS, ARITH_FAMILY_BATCHES, ARITH_FAMILY_GD_ITERATIONS = 2, 2, 2
 ARITH_PERTURBATION = 0.01  # x each leaf's std: the checkpoints stand for fine-tunes of one base, which kai0 mixes
-ARITH_BATCHES, ARITH_BATCH = 4, 8
-ARITH_GD_ITERATIONS = 3
+ARITH_BATCHES, ARITH_BATCH = 2, 8  # two batches, so that the phase's time also pays for (h)
+ARITH_GD_ITERATIONS = 2  # two, so that the phase's time also pays for (h)
 ARITH_SAMPLED_KEYS = 64
 # The mixed model.safetensors is bf16: each mixed weight is rounded once more, by at most 2^-9 of itself, where the
 # ensemble keeps its f32 mix. The weights the model casts to bf16 for its products move only where that rounding
 # flips (almost never); the ones it reads in f32 (norm scales, the action and time heads, adaRMS) move by up to 2^-9,
 # with random signs. 1e-3 of the loss holds that and not a mix at other weights.
 ARITH_MIXED_LOSS_RTOL = 1e-3
+ARITH_HOST_BATCH = 1  # the card-vs-host checks' batch: the host's f32 depth-2 passes take most of their time
 ARITH_HOST_LOSS_RTOL = 1e-5
 ARITH_HOST_GRAD_TOL = 1e-3  # x max |dL/dw| of the host
 
@@ -3945,28 +4052,29 @@ def _script(name: str):
     return module
 
 
-def _arithmetic_checkpoints(root: pathlib.Path, model_config) -> list[pathlib.Path]:
-    """Phase 21's checkpoints: a seeded bf16 base, and copies of it with every leaf moved by seeded noise of
-    ``ARITH_PERTURBATION`` x that leaf's std; the files are written from the card by one thread each."""
+def _arithmetic_checkpoints(root: pathlib.Path, model_config, count: int = ARITH_CHECKPOINTS) -> list[pathlib.Path]:
+    """Phase 21's checkpoints of the config's model class: a seeded bf16 base, and copies of it with every leaf moved
+    by seeded noise of ``ARITH_PERTURBATION`` x that leaf's population std (a one-element leaf, the estimator's
+    last value-head bias, stays as it is); the files are written from the card by one thread each."""
     from concurrent.futures import ThreadPoolExecutor
 
     from kai0_tpu_torch import interop
-    from kai0_tpu_torch.models.pi0 import Pi0
+    from kai0_tpu_torch.models.model import model_class
 
-    model = Pi0(model_config, device="cuda", param_dtype=torch.bfloat16).init_weights(
+    model = model_class(model_config)(model_config, device="cuda", param_dtype=torch.bfloat16).init_weights(
         torch.Generator(device="cuda").manual_seed(21))
     base = {name: p.detach() for name, p in model.named_parameters()}
     gen = torch.Generator(device="cuda").manual_seed(2100)
     states = [base]
-    for _ in range(ARITH_CHECKPOINTS - 1):
-        states.append({name: (b.float() + ARITH_PERTURBATION * b.float().std() * torch.randn(
+    for _ in range(count - 1):
+        states.append({name: (b.float() + ARITH_PERTURBATION * b.float().std(correction=0) * torch.randn(
             b.shape, generator=gen, device="cuda")).to(b.dtype) for name, b in base.items()})
-    paths = [root / f"ckpt_{k}" for k in range(ARITH_CHECKPOINTS)]
+    root.mkdir(exist_ok=True)
+    paths = [root / f"ckpt_{k}" for k in range(count)]
     for path in paths:
         path.mkdir()
-    with ThreadPoolExecutor(ARITH_CHECKPOINTS) as pool:
-        list(pool.map(lambda k: interop.write_safetensors(states[k], paths[k] / "model.safetensors"),
-                      range(ARITH_CHECKPOINTS)))
+    with ThreadPoolExecutor(count) as pool:
+        list(pool.map(lambda k: interop.write_safetensors(states[k], paths[k] / "model.safetensors"), range(count)))
     del model, base, states
     torch.cuda.empty_cache()
     return paths
@@ -3977,23 +4085,24 @@ def _on_simplex(weights) -> bool:
     return bool(np.all(w >= 0) and abs(w.sum() - 1.0) <= 1e-6)
 
 
-def _arithmetic_card_vs_host(root: pathlib.Path, batch: tuple) -> None:
-    """Phase 21 (g): two depth-2 full-width checkpoints, f32 compute, batch 2, fixed draws: the card's ``Ensemble``
-    (kernels) against the host's (plain versions)."""
+def _arithmetic_card_vs_host(root: pathlib.Path, batch: tuple, cut=None, label: str = "pi05") -> None:
+    """Phase 21 (g): two depth-2 full-width checkpoints of ``cut`` (π₀.₅ by default), f32 compute, a batch of
+    ``ARITH_HOST_BATCH``, fixed draws: the card's ``Ensemble`` (kernels) against the host's (plain versions)."""
     from kai0_tpu_torch import interop
     from kai0_tpu_torch.arithmetic import core
-    from kai0_tpu_torch.models.pi0 import Pi0
+    from kai0_tpu_torch.models.model import model_class
 
-    cut = _cut_depth_config(2, pi05=True, dtype="float32")
+    cut = cut or _cut_depth_config(2, pi05=True, dtype="float32")
     paths = []
     for seed in (211, 212):
-        model = Pi0(cut, device="cuda", param_dtype=torch.bfloat16).init_weights(
+        model = model_class(cut)(cut, device="cuda", param_dtype=torch.bfloat16).init_weights(
             torch.Generator(device="cuda").manual_seed(seed))
-        paths.append(interop.save_torch_checkpoint(model, root / f"depth2_{seed}").parent)
+        paths.append(interop.save_torch_checkpoint(model, root / f"depth2_{label}_{seed}").parent)
         del model
     torch.cuda.empty_cache()
     gen = torch.Generator().manual_seed(213)
-    draws = [(torch.randn((2, 50, 32), generator=gen), torch.rand(2, generator=gen) * 0.999 + 0.001)]
+    draws = [(torch.randn((ARITH_HOST_BATCH, 50, 32), generator=gen),
+              torch.rand(ARITH_HOST_BATCH, generator=gen) * 0.999 + 0.001)]
     results = {}
     for device in ("cuda", "cpu"):
         t = time.perf_counter()
@@ -4008,12 +4117,102 @@ def _arithmetic_card_vs_host(root: pathlib.Path, batch: tuple) -> None:
     vertex_err = max(abs(a - b) / abs(b) for a, b in zip(cv, hv, strict=True))
     loss_err = abs(cl - hl) / abs(hl)
     grad_err = np.abs(cg - hg).max() / np.abs(hg).max()
-    print(f"  card vs host (depth 2, f32, N=2, batch 2): vertex losses {cv} / {hv} (worst relative {vertex_err:.3e}); "
+    print(f"  {label} card vs host (depth 2, f32, N=2, batch {ARITH_HOST_BATCH}): vertex losses {cv} / {hv} (worst relative {vertex_err:.3e}); "
           f"at w=(0.3, 0.7) loss {cl:.6f} / {hl:.6f} (relative {loss_err:.3e}), dL/dw {cg.tolist()} / {hg.tolist()} "
           f"({grad_err:.3e} x max); card {cs:.1f}s, host {hs:.1f}s")
-    _check(vertex_err <= ARITH_HOST_LOSS_RTOL, f"arithmetic card vs host: vertex losses {cv} vs {hv}")
-    _check(loss_err <= ARITH_HOST_LOSS_RTOL, f"arithmetic card vs host: loss {cl} vs {hl}")
-    _check(grad_err <= ARITH_HOST_GRAD_TOL, f"arithmetic card vs host: dL/dw {cg} vs {hg}")
+    _check(vertex_err <= ARITH_HOST_LOSS_RTOL, f"{label} arithmetic card vs host: vertex losses {cv} vs {hv}")
+    _check(loss_err <= ARITH_HOST_LOSS_RTOL, f"{label} arithmetic card vs host: loss {cl} vs {hl}")
+    _check(grad_err <= ARITH_HOST_GRAD_TOL, f"{label} arithmetic card vs host: dL/dw {cg} vs {hg}")
+
+
+def _family_batch(model_config, seed: int, batch: int) -> tuple[dict, np.ndarray]:
+    """A seeded validation batch in ``scripts/dump_data_torch.py``'s form (host arrays: ``Observation.from_dict``'s
+    dict, the actions) for π₀-FAST (its three cameras, a bidirectional prefix then causal action tokens the loss
+    reads) or the estimator (a progress target in [-1, 1])."""
+    from kai0_tpu_torch.models import model as _model
+    from kai0_tpu_torch.models.advantage import AdvantageEstimatorConfig
+    from kai0_tpu_torch.models.pi0_fast import FAST_IMAGE_KEYS
+
+    rng = np.random.default_rng(seed)
+    fast = model_config.model_type == _model.ModelType.PI0_FAST
+    keys = FAST_IMAGE_KEYS if fast else _model.IMAGE_KEYS
+    tokens = model_config.max_token_len
+    pos = np.arange(tokens)[None]
+    prefix = rng.integers(tokens // 18, tokens // 3, (batch, 1))
+    end = prefix + rng.integers(tokens // 9, tokens // 2, (batch, 1))
+    obs = {
+        "image": {k: rng.integers(0, 256, (batch, 224, 224, 3), dtype=np.uint8) for k in keys},
+        "image_mask": {k: np.ones(batch, bool) for k in keys},
+        "state": rng.standard_normal((batch, model_config.action_dim)).astype(np.float32),
+        "tokenized_prompt": np.where(pos < end, rng.integers(2, 257_152, (batch, pos.shape[1])), 0).astype(np.int32),
+        "tokenized_prompt_mask": pos < end,
+    }
+    if fast:
+        obs["token_ar_mask"] = ((pos >= prefix) & (pos < end)).astype(np.int32)
+        obs["token_loss_mask"] = (pos >= prefix) & (pos < end)
+    if isinstance(model_config, AdvantageEstimatorConfig):
+        obs["progress"] = rng.uniform(-1, 1, batch).astype(np.float32)
+    actions = rng.standard_normal((batch, model_config.action_horizon, model_config.action_dim)).astype(np.float32)
+    return obs, actions
+
+
+def arithmetic_families(root: pathlib.Path) -> dict:
+    """Phase 21 (h): ``Ensemble`` over two full-width checkpoints of π₀-FAST (``pi0_fast_libero``'s model) and of
+    the advantage estimator (``ADVANTAGE_TORCH_*``'s), gradient descent on seeded batches, then each family's card
+    against the host at depth 2 (as (g)); returns each family's launches of one gradient-descent iteration."""
+    import shutil
+
+    from kai0_tpu_torch.arithmetic import core
+    from kai0_tpu_torch.models.advantage import AdvantageEstimatorConfig
+    from kai0_tpu_torch.models.model import model_class
+    from kai0_tpu_torch.models.pi0_fast import Pi0FASTConfig
+    from kai0_tpu_torch.training import config as train_config
+
+    # FAST's host check at a 64-token prompt: its f32 logits over the 257,152-token vocabulary, a row each, are most
+    # of the host's work at 180.
+    cuts = {"fast": _cut_depth_config(2, base=Pi0FASTConfig, dtype="float32", action_dim=7, action_horizon=10,
+                                      max_token_len=64),
+            "estimator": _cut_depth_config(2, base=AdvantageEstimatorConfig, pi05=True, dtype="float32",
+                                           discrete_state_input=False, loss_action_weight=0.0, loss_value_weight=1.0)}
+    per_batch = {k: v if k.startswith("flash") else 0 for k, v in TRAIN_STEP_LAUNCHES.items()}
+    weights_and_loss = lambda args, out: (np.asarray(args[1], np.float32), out[0])  # noqa: E731
+    out = {}
+    for kind, name in ARITH_FAMILIES.items():
+        model_config = train_config.get_config(name).model
+        t = time.perf_counter()
+        paths = _arithmetic_checkpoints(root / kind, model_config, ARITH_FAMILY_CHECKPOINTS)
+        write_s = time.perf_counter() - t
+        batches = [_family_batch(model_config, 2110 + i, ARITH_BATCH) for i in range(ARITH_FAMILY_BATCHES)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        ensemble = core.Ensemble(paths, model_config)
+        load_s = time.perf_counter() - t
+        staged = ensemble.stage(batches)
+        _check(type(ensemble.model) is model_class(model_config) and all(
+            (b.noise is None) == (kind == "fast") for b in staged), f"{kind}: {type(ensemble.model)}, draws")
+        _reset_launches()
+        with _Calls(core.Ensemble, "loss_and_weight_grad", weights_and_loss) as steps:
+            gd = core.optimize_weights_gradient_descent(ensemble, staged, num_iterations=ARITH_FAMILY_GD_ITERATIONS)
+        launches = _read_launches()
+        per_iteration = {k: ARITH_FAMILY_BATCHES * v for k, v in per_batch.items()}
+        evaluated = [row for _, row in steps.rows]
+        print(f"model arithmetic {kind} ({name}'s model, {ensemble.num_params} parameters): {ARITH_FAMILY_CHECKPOINTS} "
+              f"bf16 checkpoints written in {write_s:.1f}s, loaded in {load_s:.1f}s; {ARITH_FAMILY_BATCHES} batches of "
+              f"{ARITH_BATCH}; gradient descent, {ARITH_FAMILY_GD_ITERATIONS} iterations: ms an iteration "
+              f"{[f'{x:.1f}' for x in steps.ms]}, losses {[round(loss, 6) for _, loss in evaluated]}, weights {gd}; "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {launches}")
+        _check(launches == {k: ARITH_FAMILY_GD_ITERATIONS * v for k, v in per_iteration.items()},
+               f"{kind}: gradient descent launched {launches}, want {ARITH_FAMILY_GD_ITERATIONS} x {per_iteration}")
+        _check(_on_simplex(gd) and all(np.isfinite(loss) for _, loss in evaluated)
+               and min(loss for _, loss in evaluated) <= evaluated[0][1], f"{kind}: gradient descent {evaluated}, {gd}")
+        out[kind] = per_iteration
+        del ensemble, staged
+        torch.cuda.empty_cache()
+        shutil.rmtree(root / kind)
+        obs, actions = _family_batch(cuts[kind], 2120, ARITH_HOST_BATCH)
+        _arithmetic_card_vs_host(root, (obs, actions), cut=cuts[kind], label=kind)
+    return out
 
 
 def model_arithmetic() -> dict:
@@ -4022,9 +4221,11 @@ def model_arithmetic() -> dict:
     import pickle
     import shutil
     import tempfile
+    import threading
 
     from kai0_tpu_torch import interop
     from kai0_tpu_torch.arithmetic import core
+    from kai0_tpu_torch.models.model import model_class
     from kai0_tpu_torch.models.pi0 import Pi0
     from kai0_tpu_torch.training import config as train_config
 
@@ -4032,7 +4233,9 @@ def model_arithmetic() -> dict:
     model_config = train_config.get_config(ARITH_CONFIG).model
     n = sum(p.numel() for p in Pi0(model_config, device="meta").parameters())
     n_cut = sum(p.numel() for p in Pi0(_cut_depth_config(2, pi05=True), device="meta").parameters())
-    needed = (ARITH_CHECKPOINTS + 1) * 2 * n + 2 * 2 * n_cut
+    n_family = max(sum(p.numel() for p in model_class(train_config.get_config(name).model)(
+        train_config.get_config(name).model, device="meta").parameters()) for name in ARITH_FAMILIES.values())
+    needed = (ARITH_CHECKPOINTS + 1) * 2 * n + ARITH_FAMILY_CHECKPOINTS * 2 * n_family + 2 * 2 * n_cut
     tmp = tempfile.gettempdir()
     free = shutil.disk_usage(tmp).free
     print(f"model arithmetic: {free / 1e9:.3f} GB free under {tmp}; {needed / 1e9:.3f} GB needed")
@@ -4154,9 +4357,15 @@ def model_arithmetic() -> dict:
 
         with open(data, "rb") as f:
             observation, actions = pickle.load(f)[0]
-        rows = lambda tree: {k: rows(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[:2]  # noqa: E731
-        _arithmetic_card_vs_host(root, (rows(observation), actions[:2]))
-    return {"records": record, "launches": launches, "gd_iteration": per_iteration, "loss": per_loss}
+        # The full-width checkpoints and the mix are done with: their deletion runs beside the rest of the phase.
+        cleanup = threading.Thread(target=lambda: [shutil.rmtree(p) for p in (*paths, mixed_path.parent)])
+        cleanup.start()
+        rows = lambda tree: {k: rows(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[:ARITH_HOST_BATCH]  # noqa: E731
+        _arithmetic_card_vs_host(root, (rows(observation), actions[:ARITH_HOST_BATCH]))
+        families = arithmetic_families(root)
+        cleanup.join()
+    return {"records": record, "launches": launches, "gd_iteration": per_iteration, "loss": per_loss,
+            "families": families}
 
 
 # ---------------------------------------------------------------------------
@@ -4356,6 +4565,12 @@ SB_LOSS_RTOL, SB_GRAD_COSINE = 0.05, 0.98  # step 0 against the bf16 step: JAX's
 SIGLIP_SHAPES = {"attn": (1152, 1152), "fc1": (1152, 4304), "fc2": (4304, 1152), "head": (1152, 2048)}  # (K, N)
 SIGLIP_ROWS = {"train": TRAIN_BATCH * 3 * 256, "serve": 3 * 256}
 INT8_MODES_REQUESTS = 10
+# Phase 23 (e): SwitchBack serving's actions against bf16 serving's, max abs / max |a| and mean abs / mean |a|:
+# phase 5's bf16 bounds. SwitchBack rounds each FFN product's inputs to int8 (half a step, 1/254 of a row's or a
+# weight row's max); phase 23 (a)'s step 0 on the card put the whole model's output at a loss within 3.88e-4 and a
+# gradient at cosine 0.999667 of bf16's (PERF.md), a relative error of sqrt(2 (1 - cos)) = 2.6%: within 0.1 of the
+# largest action and 0.02 of the mean through 10 Euler steps, as bf16 rounding itself is.
+SB_SERVE_TOL = (0.1, 0.02)
 
 
 def _sb_step_launches(batch: int, gemma: str = "ffn", siglip: str = "0") -> dict:
@@ -4628,19 +4843,21 @@ def check_switchback_kernels() -> dict:
     return record
 
 
-def _serve_int8_mode(cfg, ckpt: str, label: str, knob_values: dict, requests: list, noise) -> dict:
-    """One ``create_trained_policy(quantize=True)`` with the config's knobs set; ``INT8_MODES_REQUESTS`` requests,
-    the first capturing the graph with the counts at 0 just before. Returns the capture's launches, the actions and
-    the times."""
+def _serve_int8_mode(cfg, ckpt: str, label: str, knob_values: dict, requests: list, noise,
+                     quantize: bool = True) -> dict:
+    """One ``create_trained_policy(quantize=quantize)`` with the config's knobs set; ``INT8_MODES_REQUESTS``
+    requests, the first capturing the graph with the counts at 0 just before. Returns the capture's launches, the
+    actions and the times."""
     from kai0_tpu_torch import knobs
     from kai0_tpu_torch.ops import quant
     from kai0_tpu_torch.policies import policy_config
 
     cfg = dataclasses.replace(cfg, knobs=knobs.Knobs(**knob_values))
     t = time.perf_counter()
-    policy = policy_config.create_trained_policy(cfg, ckpt, prompt_buckets=ENTRY_BUCKETS, quantize=True)
+    policy = policy_config.create_trained_policy(cfg, ckpt, prompt_buckets=ENTRY_BUCKETS, quantize=quantize)
     torch.cuda.synchronize()
     holders = [m for m in policy.model.modules() if quant.is_quant(m)]
+    switchback = sum(quant.is_switchback(m) for m in policy.model.modules())
     load_s = time.perf_counter() - t
     _reset_launches()
     walls, infer_ms, actions = [], [], []
@@ -4658,13 +4875,15 @@ def _serve_int8_mode(cfg, ckpt: str, label: str, knob_values: dict, requests: li
     capture = {k: v for k, v in graph.capture_launches.items() if v}
     served = {k: v for k, v in _read_launches().items() if v}
     _check(served == {k: 2 * v for k, v in capture.items()}, f"{label}: launches {served}, capture {capture}")
-    print(f"int8 modes {label}: create_trained_policy(quantize=True, knobs={knob_values}) in {load_s:.2f}s, "
-          f"{len(holders)} int8 holders (weight-only: {sum(m.weight_only for m in holders)}); {len(requests)} raw "
+    print(f"int8 modes {label}: create_trained_policy(quantize={quantize}, knobs={knob_values}) in {load_s:.2f}s, "
+          f"{len(holders)} int8 holders (weight-only: {sum(m.weight_only for m in holders)}), {switchback} SwitchBack "
+          f"layers; {len(requests)} raw "
           f"Agilex requests, the first capturing its graph: wall_ms {_percentiles(walls[1:])}, infer_ms "
           f"{_percentiles(infer_ms[1:])} (requests 1-{len(requests) - 1}); launches of the capture {capture}")
     del policy
     torch.cuda.empty_cache()
-    return {"capture": capture, "actions": actions, "walls": walls, "infer_ms": infer_ms, "holders": len(holders)}
+    return {"capture": capture, "actions": actions, "walls": walls, "infer_ms": infer_ms, "holders": len(holders),
+            "switchback": switchback}
 
 
 def serve_int8_modes(cfg, ckpt: str, entry: dict) -> dict:
@@ -4691,6 +4910,130 @@ def serve_int8_modes(cfg, ckpt: str, entry: dict) -> dict:
         f"{label} {np.percentile(r['infer_ms'][1:], 50):.2f} / {np.percentile(r['infer_ms'][1:], 90):.2f}"
         for label, r in (("bf16 (phase 14)", bf16), ("gemma int8 (phase 14)", int8), *out.items())))
     return {label: rec["capture"] for label, rec in out.items()}
+
+
+def _sb_serve_launches(prefix_rows: int, steps: int = 10, depth: int = 18) -> dict:
+    """K5 and K4b of one request served with ``int8_sb_gemma=ffn``, worked out from ``ops/quant.sb_fused_ffn``: each
+    FFN forward quantizes its three weights (K5), then per row chunk x and the activation (K5) and runs three K4b;
+    the prefix runs Gemma-2B's 18 FFNs once over its rows, each of the 10 Euler steps the action expert's over 50
+    rows. (Held on the CPU at debug size, depth 4: 220 and 132 calls.)"""
+    from kai0_tpu_torch.ops import quant
+
+    pre, suf = len(quant._row_chunks(prefix_rows, 16384)), len(quant._row_chunks(50, 4096))
+    return {"row_quant": depth * ((3 + 2 * pre) + steps * (3 + 2 * suf)),
+            "int8_matmul": depth * (3 * pre + steps * 3 * suf)}
+
+
+def check_switchback_serving_kernels() -> dict:
+    """Phase 23 (e): K5 and K4b at the shapes a SwitchBack request launches, the FFN sites of the action expert at
+    M = 50 (a denoise step) and of Gemma-2B over bucket 64's prefix rows: K5 on the weight (its per-call codes) and on
+    x, K4b ``nt``, each bit-equal to its plain version, timed beside the bound and (K4b) ``torch._int_mm`` + scaling."""
+    from kai0_tpu_torch.ops import int8_matmul as mm
+    from kai0_tpu_torch.ops import row_quant as rq
+
+    gen = torch.Generator(device="cuda").manual_seed(235)
+    bf16, prefix = torch.bfloat16, 3 * 256 + ENTRY_BUCKETS[0]
+    shapes = {"denoise gate/up": (50, 1024, 4096), "denoise down": (50, 4096, 1024),
+              "prefix gate/up": (prefix, 2048, 16384), "prefix down": (prefix, 16384, 2048)}
+    record = {}
+    for label, (rows, k, n) in shapes.items():
+        w = (torch.randn(n, k, generator=gen, device="cuda") * 0.02).to(bf16)
+        a = (torch.randn(rows, k, generator=gen, device="cuda") * 3).to(bf16)
+        (wq, ws), (aq, sa) = rq.row_quant(w), rq.row_quant(a)
+        for x, q, sc in ((w, wq, ws), (a, aq, sa)):
+            ref_q, ref_s = rq.row_quant_plain(x)
+            _check(torch.equal(q, ref_q) and torch.equal(sc, ref_s), f"row_quant {tuple(x.shape)}: not bit-equal")
+        y = mm.int8_matmul(aq, wq, sa, ws.view(-1), nt=True, out_dtype=bf16)
+        _check(torch.equal(y, mm.int8_matmul_plain(aq, wq, sa, ws.view(-1), nt=True, out_dtype=bf16)),
+               f"int8_matmul at SwitchBack serving's {label}: not bit-equal")
+        library = lambda: (torch._int_mm(aq, wq.T).to(torch.float32) * sa * ws.view(-1)).to(bf16)  # noqa: E731
+        _check(torch.equal(library(), y), f"int8_matmul at SwitchBack serving's {label}: library yardstick differs")
+        ms = _cuda_ms(lambda: mm.int8_matmul(aq, wq, sa, ws.view(-1), nt=True, out_dtype=bf16), runs=20)
+        plain_ms = _cuda_ms(lambda: mm.int8_matmul_plain(aq, wq, sa, ws.view(-1), nt=True, out_dtype=bf16), runs=5)
+        lib_ms = _cuda_ms(library, runs=20)
+        bound_ms, bound_by = _int8_bound(rows, n, k, _nbytes(aq, wq, sa, ws, y))
+        rq_ms = {what: (_cuda_ms(lambda: rq.row_quant(x), runs=20), _cuda_ms(lambda: rq.row_quant_plain(x), runs=5),
+                        _nbytes(x, *rq.row_quant(x)) / HBM_BYTES_PER_S * 1e3) for what, x in (("w", w), ("x", a))}
+        print(f"kernel int8_matmul at SwitchBack serving's {label} (M={rows}, K={k}, N={n}, nt): bit-equal; "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} int_mm_ms={lib_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}); "
+              + "; ".join(f"row_quant of {what} {tuple((w if what == 'w' else a).shape)} kernel_ms={v[0]:.4f} "
+                          f"plain_ms={v[1]:.4f} bound_ms={v[2]:.6f} (bytes)" for what, v in rq_ms.items()))
+        record[label] = {"int8_matmul": (ms, plain_ms, bound_ms, lib_ms), "row_quant": rq_ms}
+    return record
+
+
+def serve_switchback(cfg, ckpt: str, entry: dict) -> dict:
+    """Phase 23 (e): ``create_trained_policy`` with ``knobs.int8_sb_gemma="ffn"`` (no ``quantize``) on phase 14's
+    checkpoint and first requests, through the graph; the capture's K5 and K4b launches against
+    ``_sb_serve_launches``, the actions against phase 14's bf16 policy's within ``SB_SERVE_TOL``, ``infer_ms``
+    beside phase 14's bf16; then the kernels at those shapes (``check_switchback_serving_kernels``)."""
+    requests, noise = entry["bf16"]["requests"][:INT8_MODES_REQUESTS], entry["bf16"]["noise"]
+    rec = _serve_int8_mode(cfg, ckpt, "switchback ffn", {"int8_sb_gemma": "ffn"}, requests, noise, quantize=False)
+    want = {"flash_mha": 198, "flash_mhsa": 27, **_sb_serve_launches(3 * 256 + ENTRY_BUCKETS[0])}
+    _check(rec["switchback"] == 2 * 18 * 3 and rec["holders"] == 0, f"switchback serving: {rec['switchback']} "
+           f"SwitchBack layers and {rec['holders']} int8 holders, want 108 and 0")
+    _check(rec["capture"] == want, f"switchback serving: the capture launched {rec['capture']}, want {want}")
+    bf16 = entry["bf16"]["actions"]
+    worst_max = worst_mean = 0.0
+    for a, b in zip(rec["actions"], bf16, strict=False):
+        worst_max = max(worst_max, float(np.abs(a - b).max()) / float(np.abs(b).max()))
+        worst_mean = max(worst_mean, float(np.abs(a - b).mean()) / float(np.abs(b).mean()))
+    print(f"switchback serving: actions against phase 14's bf16 policy on the same requests and noise: max abs "
+          f"{worst_max:.4e} x max |a|, mean abs {worst_mean:.4e} x mean |a| (limits {SB_SERVE_TOL}); infer_ms p50 "
+          f"{np.percentile(rec['infer_ms'][1:], 50):.2f} against bf16's {np.percentile(entry['bf16']['infer_ms'][1:], 50):.2f} "
+          f"(phase 14, same call)")
+    _check(0 < worst_max <= SB_SERVE_TOL[0] and worst_mean <= SB_SERVE_TOL[1],
+           f"switchback serving: actions against bf16 {worst_max}, {worst_mean}")
+    return {"capture": rec["capture"], "kernels": check_switchback_serving_kernels()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the convergence probe's full fine-tune arms
+# ---------------------------------------------------------------------------
+
+CONV_STEPS, CONV_CHUNK, CONV_BATCH = 4, 2, 12  # 2 chunks of 2 steps; batch 12 as check_convergence_onchip.py
+
+
+def convergence() -> dict:
+    """Phase 25: ``scripts/check_convergence_onchip_torch.run`` on both ``--full-ft`` arms at full width, batch 12
+    (ClipSGD, bf16 parameters, no EMA; ``bench_defaults.FULLFT_KNOBS``' SwitchBack on the Gemma FFN, and bf16
+    products under ``KAI0_INT8_SB_GEMMA=0``, as the script's user selects them): the losses, read once a chunk; step
+    0 of the two arms within phase 23 (a)'s step-0 bound; the launches of all steps. Returns the SwitchBack arm's
+    launches a step."""
+    import os
+
+    probe = _script("check_convergence_onchip_torch")
+    arms = {}
+    for label, env in (("sb", None), ("bf16", "0")):
+        config = probe.arm_config(full_ft=True, batch=CONV_BATCH)
+        ambient = os.environ.get("KAI0_INT8_SB_GEMMA")
+        if env is not None:
+            os.environ["KAI0_INT8_SB_GEMMA"] = env
+        try:
+            _reset_launches()
+            t = time.perf_counter()
+            losses, ms = probe.run(config, CONV_STEPS, chunk=CONV_CHUNK)
+            wall = time.perf_counter() - t
+        finally:
+            if ambient is None:
+                os.environ.pop("KAI0_INT8_SB_GEMMA", None)
+            else:
+                os.environ["KAI0_INT8_SB_GEMMA"] = ambient
+        launches = _read_launches()
+        step = {**TRAIN_STEP_LAUNCHES, "adam_q8": 0, **(_sb_step_launches(CONV_BATCH, "ffn") if env is None else {})}
+        want = {k: CONV_STEPS * v for k, v in step.items()}
+        print(f"convergence {label} (--full-ft, ClipSGD, batch {CONV_BATCH}): losses {[round(x, 6) for x in losses]}; "
+              f"ms a step by chunk {[round(x, 2) for x in ms]}; {wall:.1f}s with the model's init; launches over "
+              f"{CONV_STEPS} steps {launches}")
+        _check(len(losses) == CONV_STEPS and all(np.isfinite(losses)), f"convergence {label}: losses {losses}")
+        _check(launches == want, f"convergence {label}: launches over {CONV_STEPS} steps {launches}, want {want}")
+        arms[label] = (losses, step)
+        torch.cuda.empty_cache()
+    rel = abs(arms["sb"][0][0] - arms["bf16"][0][0]) / abs(arms["bf16"][0][0])
+    print(f"convergence: step 0 SwitchBack {arms['sb'][0][0]:.6f} against bf16 {arms['bf16'][0][0]:.6f} (relative "
+          f"{rel:.4e}, limit {SB_LOSS_RTOL}: phase 23 (a)'s)")
+    _check(rel < SB_LOSS_RTOL, f"convergence: step 0 of the SwitchBack arm {rel} from the bf16 arm's")
+    return arms["sb"][1]
 
 
 def timed(label: str, fn, *args):
@@ -4744,6 +5087,7 @@ def main() -> int:
     int8_launches, _, _ = timed("13 train lora int8", train, "lora_int8")
     switchback = timed("23 (a)-(c) switchback training", switchback_training,
                        {"loss0": phase9_losses[0], "median_ms": phase9_ms})
+    convergence_launches = timed("25 convergence", convergence)
     entry_launches = timed("14-17 serve entry", serve_entry)
     train_entry_launches = timed("18 train entry", train_entry)
     advantage_launches = timed("19 stage advantage", stage_advantage)
@@ -4821,7 +5165,7 @@ def main() -> int:
                     "flash_mha_bwd", "flash_mhsa_bwd", "adam_q8")):
                 _check(families[path].get(name, 0) > 0, f"{name} was not launched by phase 20's {path}")
                 entry[f"launches_{path}"] = families[path][name]
-        # launches_arithmetic: phase 21's mixing script (gradient descent, 3 iterations of 4 batches of 8), counted from
+        # launches_arithmetic: phase 21's mixing script (gradient descent, 2 iterations of 2 batches of 8), counted from
         # 0 set just before; launches_arithmetic_gd_iteration / _loss: one iteration and one loss evaluation of its
         # Ensemble (K3, K4 and K5 none: the path has no optimizer step and no int8).
         if name.startswith("flash_"):
@@ -4854,6 +5198,23 @@ def main() -> int:
         if name in ("flash_mha", "flash_mhsa", "row_quant", "int8_matmul"):
             _check(families["fast_int8_serving"].get(name, 0) > 0, f"{name} was not launched by int8 FAST serving")
             entry["launches_fast_int8_serving"] = families["fast_int8_serving"][name]
+        # launches_serving_sb: the capture of phase 23 (e)'s SwitchBack request; launches_arithmetic_<family>_gd_iteration:
+        # one gradient-descent iteration of phase 21 (h)'s π₀-FAST and estimator ensembles (2 batches of 8);
+        # launches_convergence_sb_step: a step of phase 25's SwitchBack --full-ft arm (ClipSGD: no K3). Each counted
+        # from 0 set just before.
+        if name in ("flash_mha", "flash_mhsa", "row_quant", "int8_matmul"):
+            entry["launches_serving_sb"] = entry_launches["switchback"]["capture"].get(name, 0)
+            _check(entry["launches_serving_sb"] > 0, f"{name} was not launched by SwitchBack serving")
+        for family, counts in arithmetic["families"].items():
+            if name.startswith("flash_"):
+                _check(counts[name] > 0, f"{name} was not launched by phase 21's {family} ensemble")
+            entry[f"launches_arithmetic_{family}_gd_iteration"] = counts[name]
+        entry["launches_convergence_sb_step"] = convergence_launches[name]
+        if name in ("flash_mha", "flash_mha_bwd", "flash_mhsa", "flash_mhsa_bwd", "row_quant", "row_quant_colscale",
+                    "int8_matmul"):
+            _check(convergence_launches[name] > 0, f"{name} was not launched by phase 25's SwitchBack arm")
+        if name in ("row_quant", "int8_matmul"):
+            entry["sb_serving"] = {label: rec[name] for label, rec in entry_launches["switchback"]["kernels"].items()}
         for mode, counts in entry_launches["client"].items():
             if name in ("flash_mha", "flash_mhsa") or (name, mode) == ("flash_mha_bwd", "rtc"):
                 _check(counts.get(name, 0) > 0, f"{name} was not launched by the client's {mode} mode")

@@ -8,7 +8,10 @@ RGB) and resizes each frame there, once, to 224×224 with pad
 (``resize_with_pad_np``, the JAX evaluator's ``_prep_image``; JAX resizes a
 frame again for every batch that reads it, which gives the same bytes), and
 runs ``AdvantageEstimator.sample_values`` over fixed-size batches (the last
-batch padded with its last row).
+batch padded with its last row). Under ``KAI0_INT8_SB_GEMMA`` / ``KAI0_INT8_SB``
+the estimator's products run by SwitchBack (``ops/quant.switchback_tree``), as
+JAX's estimator reads those variables when it traces (the environment alone
+decides: JAX applies no config's knobs here).
 
 Two modes (reference :249-485 and :486+):
 
@@ -44,9 +47,11 @@ import numpy as np
 import torch
 
 from kai0_tpu_torch import interop as _interop
+from kai0_tpu_torch import knobs as _knobs
 from kai0_tpu_torch.models import advantage as _advantage
 from kai0_tpu_torch.models import model as _model
 from kai0_tpu_torch.models import tokenizer as _tokenizer
+from kai0_tpu_torch.ops import quant as _quant
 from kai0_tpu_torch.shared import image_tools
 
 logger = logging.getLogger("kai0_tpu_torch")
@@ -119,6 +124,9 @@ class SimpleValueEvaluator:
                                     "torch checkpoint (kai0_tpu.interop.save_torch_checkpoint writes one)")
         model = _advantage.AdvantageEstimator(self.model_config, device=self.device, param_dtype=param_dtype)
         self.model = _interop.load_torch_checkpoint(model, ckpt_dir).requires_grad_(False).eval()
+        knobs = _knobs.resolve()
+        _quant.switchback_tree(self.model, gemma=knobs.int8_sb_gemma, siglip=knobs.int8_switchback,
+                               weight_only=knobs.int8_weight_only)
         self.tokenizer = _tokenizer.PaligemmaTokenizer(self.model_config.max_token_len)
         self._draws = draws
         self.timing: dict = {}

@@ -12,12 +12,18 @@ is the mixing CLI's key-wise f64 mix (``model_arithmetic/arithmetic_torch.py``'s
 ``mix_torch_params``), on the host or on the card.
 
 ``Ensemble`` (JAX's ``DeviceEnsemble``) holds N checkpoints on the card and
-evaluates the loss of their mix ``Σ w_k·θ_k`` with ``Pi0.compute_loss(train=False)``.
-Memory, with P parameters (3.35e9 for π₀.₅):
+evaluates the loss of their mix ``Σ w_k·θ_k`` with the model's
+``compute_loss(train=False)``, for every model family JAX's mixes: π₀ and π₀.₅
+(``Pi0``, ``Pi0RTC``), π₀-FAST (``Pi0FAST``: the next-token loss, no draws) and
+the advantage estimator (``AdvantageEstimator``: the flow and value loss).
+Under ``KAI0_INT8_SB_GEMMA`` / ``KAI0_INT8_SB`` its products run by SwitchBack
+(``ops/quant.switchback_tree``), as JAX's models read those variables when
+they trace; the environment alone decides, as for ``DeviceEnsemble`` (no
+config's knobs are applied there). Memory, with P parameters (3.35e9 for π₀.₅):
 
 - the N checkpoints in bf16, one [N, P] tensor: 2·N·P bytes (6.7 GB each);
-- one f32 mix of P, whose views are the parameters of one ``Pi0`` built on the
-  meta device: 4·P bytes (13.4 GB);
+- one f32 mix of P, whose views are the parameters of one model of the
+  config's class built on the meta device: 4·P bytes (13.4 GB);
 - its f32 gradient, made at the first gradient call: 4·P bytes;
 - a [N, 2^22] f32 staging chunk, the activations of one batch (per-block
   recompute) and the backward's temporaries.
@@ -37,7 +43,8 @@ derivative (``jnp.tensordot``), batch by batch.
 Noise and time: JAX draws them from ``jax.random.key(0)`` on every evaluation,
 so its objective is deterministic. The port draws ``(noise, time)`` once per
 batch from a ``torch.Generator`` in ``Ensemble.stage`` (or takes given draws)
-and reuses them on every evaluation.
+and reuses them on every evaluation; a π₀-FAST batch carries none (its loss
+draws nothing).
 
 The mix and the projections are ``jnp`` work in JAX, with no Pallas kernel;
 here they are plain torch. The model inside runs the attention kernels of
@@ -56,8 +63,10 @@ import numpy as np
 import torch
 
 from kai0_tpu_torch import interop as _interop
+from kai0_tpu_torch import knobs as _knobs
 from kai0_tpu_torch.models import model as _model
 from kai0_tpu_torch.models import pi0 as _pi0
+from kai0_tpu_torch.ops import quant as _quant
 
 logger = logging.getLogger("kai0_tpu_torch")
 
@@ -188,24 +197,27 @@ def mix_state_dicts(states: Sequence[dict[str, torch.Tensor]], weights, *, devic
 
 @dataclasses.dataclass
 class Batch:
-    """One validation batch on the ensemble's device with its fixed flow draws."""
+    """One validation batch on the ensemble's device with its fixed flow draws (None for π₀-FAST)."""
 
     observation: _model.Observation
     actions: torch.Tensor
-    noise: torch.Tensor
-    time: torch.Tensor
+    noise: torch.Tensor | None
+    time: torch.Tensor | None
 
 
 class Ensemble:
-    """N π₀ / π₀.₅ checkpoints on ``device`` in bf16, and one ``Pi0`` whose f32 parameters are their mix."""
+    """N checkpoints of one model family on ``device`` in bf16, and one model of the config's class
+    (``models/model.model_class``) whose f32 parameters are their mix."""
 
     def __init__(self, checkpoint_paths: Sequence, model_config, *, device="cuda"):
-        if model_config.model_type not in (_model.ModelType.PI0, _model.ModelType.PI05,
-                                           _model.ModelType.PI0_RTC, _model.ModelType.PI05_RTC):
-            raise NotImplementedError(f"Model Arithmetic mixes π₀ / π₀.₅ checkpoints, not {model_config.model_type}")
         self.device = torch.device(device)
         self.n = len(checkpoint_paths)
-        model = _pi0.Pi0(model_config, device="meta")
+        model = _model.model_class(model_config)(model_config, device="meta")
+        # The flow models' losses take noise and time; π₀-FAST's next-token loss draws nothing.
+        self.draws = model_config.model_type != _model.ModelType.PI0_FAST
+        knobs = _knobs.resolve()
+        _quant.switchback_tree(model, gemma=knobs.int8_sb_gemma, siglip=knobs.int8_switchback,
+                               weight_only=knobs.int8_weight_only)
         self._layout, offset = [], 0
         for name, p in model.named_parameters():
             self._layout.append((name, offset, p.shape))
@@ -249,7 +261,8 @@ class Ensemble:
     def stage(self, batches, *, generator: torch.Generator | None = None, draws=None) -> list[Batch]:
         """Batches on the device with their draws: ``batches`` are ``(observation dict, actions)`` pairs of arrays
         (the ``from_dict`` form, as ``scripts/dump_data_torch.py`` pickles them); ``draws`` a ``(noise, time)``
-        pair per batch, or None to draw them from ``generator`` (seeded 0 on the device by default)."""
+        pair per batch, or None to draw them from ``generator`` (seeded 0 on the device by default); a model
+        without draws (π₀-FAST) ignores both."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         staged = []
@@ -257,9 +270,12 @@ class Ensemble:
             tree = _tree_map(lambda x: torch.as_tensor(x).to(self.device), observation)
             actions = torch.as_tensor(actions).to(self.device, torch.float32)
             noise, time = (None, None) if draws is None else draws[i]
-            noise, time = _pi0.draw_noise_and_time(actions.shape, generator, self.device, noise, time)
-            staged.append(Batch(_model.Observation.from_dict(tree), actions, noise.to(self.device),
-                                time.to(self.device)))
+            if self.draws:
+                noise, time = _pi0.draw_noise_and_time(actions.shape, generator, self.device, noise, time)
+                noise, time = noise.to(self.device), time.to(self.device)
+            else:
+                noise = time = None
+            staged.append(Batch(_model.Observation.from_dict(tree), actions, noise, time))
         return staged
 
     @torch.no_grad()

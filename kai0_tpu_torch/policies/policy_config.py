@@ -7,7 +7,10 @@ is its PaliGemma half) into the config's model with bf16 parameters (π₀ or
 quantizes its Gemma matmul weights to int8
 (``ops/quant.quantize_inference_tree``; the config's ``knobs`` under the
 ``KAI0_INT8_*`` environment choose the Gemma sites, the SigLIP sites and
-weight-only), loads the norm stats from the
+weight-only), runs the products that ``int8_sb_gemma`` / ``int8_switchback``
+select by SwitchBack (``ops/quant.switchback_tree``, as JAX's
+``apply_model_knobs`` makes its models trace them; with ``quantize`` a frozen
+int8 site keeps its int8 product), loads the norm stats from the
 checkpoint's ``assets/<asset_id>`` (so serving uses the stats training used),
 and builds the transform chains
 
@@ -89,13 +92,17 @@ def create_trained_policy(
     repack_transforms = repack_transforms or _transforms.Group()
     checkpoint_dir = pathlib.Path(checkpoint_dir)
     model = _load_model(train_config.model, checkpoint_dir, params, device).eval()
+    knobs = _knobs.resolve(train_config.knobs)
+    logger.info(f"Model knobs: {knobs}")
     if quantize:
         # int8 matmul weights: half the weight bytes; moves the actions slightly.
-        knobs = _knobs.resolve(train_config.knobs)
         _quant.quantize_inference_tree(
             model, sites=_quant.gemma_sites(knobs.int8_sites), siglip_sites=_quant.siglip_inference_sites(knobs.int8_siglip),
             weight_only=knobs.int8_weight_only,
         )
+    # SwitchBack where the knobs select it, before any graph is captured; frozen int8 holders keep their product.
+    _quant.switchback_tree(model, gemma=knobs.int8_sb_gemma, siglip=knobs.int8_switchback,
+                           weight_only=knobs.int8_weight_only)
 
     data_config = train_config.data.create(train_config.assets_dirs, train_config.model)
     if norm_stats is None and data_config.asset_id is not None:

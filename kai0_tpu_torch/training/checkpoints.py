@@ -13,7 +13,8 @@ Under ``<checkpoint_dir>/<step>/``:
   ``kai0_tpu/training/train_lib.py:230-258``).
 - ``train_state.safetensors`` and ``train_state.json``: the rest of what a
   resume needs. The tensors are the optimizer moments in their storage dtype
-  (f32, bf16, or int8 codes and f32 block scales) and, when the EMA holds
+  (f32, bf16, or int8 codes and f32 block scales; SGD's momentum trace;
+  ClipSGD keeps none) and, when the EMA holds
   ``model.safetensors``, the parameters; the JSON holds the step, the
   optimizer count and whether the run keeps an EMA.
 - ``assets/<asset_id>/norm_stats.json`` when the data config has norm stats.
@@ -134,9 +135,13 @@ def inference_state(model: nn.Module, state: TrainState) -> dict[str, torch.Tens
 
 
 def _opt_tensors(opt_state: Mapping) -> dict[str, torch.Tensor]:
+    """The optimizer state's tensors by ``opt/<key>/<name>``: AdamW's ``mu`` and ``nu``, SGD's ``trace``, none of
+    ClipSGD's."""
     out = {}
-    for key in ("mu", "nu"):
-        for name, moment in opt_state[key].items():
+    for key, moments in opt_state.items():
+        if key == "count":
+            continue
+        for name, moment in moments.items():
             if isinstance(moment, Mapping):  # int8 codes and f32 block scales
                 out.update({f"opt/{key}/{name}/{part}": moment[part] for part in ("q", "s")})
             else:

@@ -223,7 +223,9 @@ class TrainConfig:
     weight_loader: weight_loaders.WeightLoader = dataclasses.field(default_factory=weight_loaders.NoOpWeightLoader)
 
     # What the train step reads (train_lib.train_step).
-    optimizer: _optimizer.AdamW = dataclasses.field(default_factory=_optimizer.AdamW)
+    optimizer: _optimizer.AdamW | _optimizer.SGD | _optimizer.ClipSGD = dataclasses.field(
+        default_factory=_optimizer.AdamW
+    )
     lr_schedule: _optimizer.CosineDecaySchedule | _optimizer.RsqrtDecaySchedule = dataclasses.field(
         default_factory=_optimizer.CosineDecaySchedule
     )

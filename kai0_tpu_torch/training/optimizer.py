@@ -1,14 +1,18 @@
-"""Learning-rate schedules and AdamW, as plain functions over dicts of tensors.
+"""Learning-rate schedules, AdamW, SGD and ClipSGD, as plain functions over dicts of tensors.
 
 Counterpart of ``kai0_tpu/training/optimizer.py`` (the schedules at :29-91,
 ``_stochastic_round_bf16`` :94-108, the q8 codec :129-168, AdamW with f32,
 bf16 or 8-bit moments :171-348 and :404-441, the f32-accumulated clip
-:351-378, ``apply_updates_sr`` :381-401). Not ``torch.optim``: the update is
-the JAX chain in its order, clip -> Adam -> ``+ wd·p`` -> ``x(-lr(count))``,
-where optax bias-corrects with the incremented count and the learning rate
-reads the count before the increment.
+:351-378, ``apply_updates_sr`` :381-401, ``SGD`` :444-457, ``ClipSGD``
+:460-477). Not ``torch.optim``: the update is the JAX chain in its order,
+clip -> Adam -> ``+ wd·p`` -> ``x(-lr(count))`` (SGD: ``optax.trace`` ->
+``x(-lr(count))``; ClipSGD: clip -> ``x(-lr(count))``), where optax
+bias-corrects with the incremented count and the learning rate reads the count
+before the increment. The three share ``init(params)`` and
+``update(grads, state, params, lr, norm=None)``; AdamW and ClipSGD clip through
+``clipper``, decided on the device, so a step reads nothing back to the host.
 
-State: ``{"count": int, "mu": {name: moment}, "nu": {name: moment}}`` with a
+AdamW's state: ``{"count": int, "mu": {name: moment}, "nu": {name: moment}}`` with a
 moment a tensor (f32 or bf16 storage) or, for ``state_dtype="int8"``, a dict
 ``{"q": codes, "s": block scales}`` updated in place by kernel K3, one launch
 over every tensor of the step (``kai0_tpu_torch.ops.adam_q8.adam_q8_leaves``;
@@ -16,6 +20,12 @@ the module also holds the q8 codec). The q8 blocks are cut over the port's
 per-layer tensors, JAX's over its stacked leaves, so q8 state crosses between
 the packages as f32 moments: ``q8_moments`` decodes the port's state per
 tensor, ``q8_state_from_moments`` encodes moments into it.
+
+SGD's state is ``{"count": int, "trace": {name: momentum}}`` (in the
+parameters' dtype, as ``optax.trace``); ClipSGD's is ``{"count": int}``, no
+tensor shaped like the parameters (what lets the full-width full fine-tune
+with bf16 parameters keep no optimizer memory). Every state's tensors are the
+dicts of tensors beside ``count`` (``training/checkpoints.py`` saves them).
 
 Randomness: the bf16 stochastic rounding of nu and the q8 rounding draw from
 generators seeded by (tag, count, tensor index), so a step is deterministic
@@ -111,11 +121,18 @@ def global_norm_f32(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
 
 
-def _clip(g: torch.Tensor, norm: torch.Tensor, max_norm: float, all_f32: bool) -> torch.Tensor:
-    """One tensor of the global-norm clip at norm >= max_norm (f32 trees as optax, others in f32)."""
-    if all_f32:  # optax.clip_by_global_norm
-        return g / norm * max_norm
-    return (g.float() * (max_norm / norm)).to(g.dtype)
+def clipper(grads: Mapping[str, torch.Tensor], norm: torch.Tensor, max_norm: float) -> Callable:
+    """The global-norm clip of one tensor of ``grads`` (whose f32 norm is ``norm``), decided on the device.
+
+    f32 trees as ``optax.clip_by_global_norm`` (``where(norm < max, g, g / norm · max)``), others in f32 by the
+    scale ``where(norm < max, 1, max / norm)`` (``_clip_by_global_norm_f32``). No host read; each call returns a
+    new tensor.
+    """
+    below = norm < max_norm
+    if all(g.dtype == torch.float32 for g in grads.values()):
+        return lambda g: torch.where(below, g, g / norm * max_norm)
+    scale = torch.where(below, torch.ones_like(norm), max_norm / norm)
+    return lambda g: (g.float() * scale).to(g.dtype)
 
 
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -161,10 +178,10 @@ class AdamW:
             nu = {k: torch.zeros_like(p, dtype=dtype) for k, p in params.items()}
         return {"count": 0, "mu": mu, "nu": nu}
 
-    def _adam_q8(self, names: list[str], gs: list[torch.Tensor], state: dict, count: int, owned: bool) -> list:
+    def _adam_q8(self, names: list[str], gs: list[torch.Tensor], state: dict, count: int) -> list:
         """Adam with int8 moments on every tensor at once (kernel K3, one launch); updates ``state`` in place.
 
-        ``owned``: the gradients are this step's own copies (clipped), so the updates overwrite them.
+        ``gs`` are this step's own (clipped) copies of the gradients, so the updates overwrite them.
         """
         b1, b2 = self.b1, self.b2
         c1, c2 = 1 - _f32(b1) ** count, 1 - _f32(b2) ** count
@@ -173,7 +190,7 @@ class AdamW:
         mu, nu = (state[key] for key in ("mu", "nu"))
         return _adam_q8.adam_q8_leaves(
             gs, [mu[k]["q"] for k in names], [mu[k]["s"] for k in names], [nu[k]["q"] for k in names],
-            [nu[k]["s"] for k in names], a, b, seeds, b1=b1, b2=b2, out=gs if owned else None,
+            [nu[k]["s"] for k in names], a, b, seeds, b1=b1, b2=b2, out=gs,
         )
 
     def _adam(self, i: int, name: str, g: torch.Tensor, state: dict, count: int) -> torch.Tensor:
@@ -200,20 +217,19 @@ class AdamW:
         state: dict,
         params: Mapping[str, torch.Tensor],
         lr: Callable[[int], float],
+        norm: torch.Tensor | None = None,
     ) -> tuple[dict[str, torch.Tensor], dict]:
-        """The updates to add to ``params``, and the new state (its moment tensors replace or update the old)."""
-        norm = global_norm_f32(grads.values())
-        all_f32 = all(g.dtype == torch.float32 for g in grads.values())
-        clip = bool(norm >= self.clip_gradient_norm)  # optax scales only when norm >= max_norm
+        """The updates to add to ``params``, and the new state (its moment tensors replace or update the old).
+
+        ``norm``: the gradients' f32 global norm, where the caller has it (computed here otherwise)."""
+        if norm is None:
+            norm = global_norm_f32(grads.values())
+        clipped = clipper(grads, norm, self.clip_gradient_norm)
         count = state["count"] + 1
         step_lr = lr(state["count"])
         new_state = {"count": count, "mu": dict(state["mu"]), "nu": dict(state["nu"])}
-
-        def clipped(g):
-            return _clip(g, norm, self.clip_gradient_norm, all_f32) if clip else g
-
         if self.state_dtype == "int8":
-            adam = self._adam_q8(list(grads), [clipped(g) for g in grads.values()], new_state, count, clip)
+            adam = self._adam_q8(list(grads), [clipped(g) for g in grads.values()], new_state, count)
         else:  # tensor by tensor, so that one clipped copy is alive at a time
             adam = (self._adam(i, name, clipped(g), new_state, count) for i, (name, g) in enumerate(grads.items()))
         # Adam's updates are this function's own tensors: the rest of the chain runs in place on them.
@@ -223,6 +239,59 @@ class AdamW:
             u.add_(_scalar(self.weight_decay, p) * p)  # optax.add_decayed_weights
             updates[name] = u.mul_(_scalar(-step_lr, u))  # optax.scale_by_learning_rate
         return updates, new_state
+
+
+@dataclasses.dataclass(frozen=True)
+class SGD:
+    """``optax.trace(momentum, nesterov)`` then the learning rate; no clip, no weight decay.
+
+    ``lr`` is JAX's unused field (its ``create`` takes the schedule); a weight-decay mask raises, as in JAX.
+    """
+
+    lr: float = 5e-5
+    momentum: float = 0.9
+    nesterov: bool = False
+
+    def init(self, params: Mapping[str, torch.Tensor], weight_decay_mask=None) -> dict:
+        if weight_decay_mask is not None:
+            raise ValueError("SGD does not support a weight-decay mask")
+        return {"count": 0, "trace": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    def update(self, grads, state: dict, params, lr: Callable[[int], float],
+               norm: torch.Tensor | None = None) -> tuple[dict[str, torch.Tensor], dict]:
+        del params, norm
+        step_lr = lr(state["count"])
+        trace, updates = {}, {}
+        for name, g in grads.items():
+            t = g + _scalar(self.momentum, g) * state["trace"][name]  # optax.trace: g + decay·t
+            trace[name] = t
+            u = g + _scalar(self.momentum, g) * t if self.nesterov else t.clone()
+            updates[name] = u.mul_(_scalar(-step_lr, u))
+        return updates, {"count": state["count"] + 1, "trace": trace}
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipSGD:
+    """The f32 global-norm clip (``clipper``), then the learning rate: no state shaped like the parameters."""
+
+    clip_gradient_norm: float = 1.0
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> dict:
+        del params
+        return {"count": 0}
+
+    def update(self, grads, state: dict, params, lr: Callable[[int], float],
+               norm: torch.Tensor | None = None) -> tuple[dict[str, torch.Tensor], dict]:
+        del params
+        if norm is None:
+            norm = global_norm_f32(grads.values())
+        clipped = clipper(grads, norm, self.clip_gradient_norm)
+        step_lr = lr(state["count"])
+        updates = {}
+        for name, g in grads.items():
+            u = clipped(g)
+            updates[name] = u.mul_(_scalar(-step_lr, u))
+        return updates, {"count": state["count"] + 1}
 
 
 def q8_moments(state: Mapping) -> dict[str, dict[str, torch.Tensor]]:

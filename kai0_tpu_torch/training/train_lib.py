@@ -9,9 +9,10 @@ gradients and, with ``quantize_frozen``, their matmul weights at the
 ``int8_sites`` quantized to int8 once), runs the selected products by
 SwitchBack (``TrainConfig.knobs``: ``int8_sb_gemma``, ``int8_switchback``;
 same parameters, so checkpoints and optimizer state keep their keys) and
-builds the optimizer state, over the trainable parameters only, and the EMA; ``train_step`` runs ``compute_loss`` -> backward -> clip -> AdamW ->
-weight decay -> learning rate -> apply (stochastically rounded into bf16
-parameters) -> EMA, and returns ``{"loss", "grad_norm"}`` with the norm
+builds the optimizer state, over the trainable parameters only, and the EMA; ``train_step`` runs ``compute_loss`` -> backward -> the
+optimizer's update (AdamW: clip -> Adam -> weight decay -> learning rate; SGD:
+momentum -> learning rate; ClipSGD: clip -> learning rate) -> apply
+(stochastically rounded into bf16 parameters) -> EMA, and returns ``{"loss", "grad_norm"}`` with the norm
 accumulated in f32. Parameters and optimizer state are updated in place.
 ``main`` is the loop of ``scripts/train_torch.py``: data, checkpoints with
 resume, metrics and the profiler around ``train_step`` (its docstring).
@@ -142,7 +143,7 @@ def train_step(
         for p in params.values():
             p.grad = None
         grad_norm = _optimizer.global_norm_f32(grads.values())
-        updates, opt_state = config.optimizer.update(grads, state.opt_state, params, config.lr_schedule)
+        updates, opt_state = config.optimizer.update(grads, state.opt_state, params, config.lr_schedule, grad_norm)
         del grads
         if config.param_dtype == "bfloat16":
             _optimizer.apply_updates_sr(params, updates, state.step)

@@ -1,4 +1,4 @@
-"""Mix PyTorch-format π₀ / π₀.₅ checkpoints (``model.safetensors``) with the PyTorch port on a CUDA card.
+"""Mix PyTorch-format checkpoints (``model.safetensors``) with the PyTorch port on a CUDA card.
 
 The command line of ``model_arithmetic/arithmetic_torch.py``:
 
@@ -12,8 +12,10 @@ alias). The weights are ``--weights``, the average, squared inverse
 ``--losses``, or chosen on validation batches by the loss of the mixed model
 (``inverse_loss`` without ``--losses``, ``gradient_descent``,
 ``adaptive_gradient_descent``, ``greedy``), which needs ``--config`` (the
-train config whose model the checkpoints hold) and ``--data-path``. Those
-modes hold all checkpoints on the card at once: 6.7 GB each in bf16 for π₀.₅,
+train config whose model the checkpoints hold: a π₀, π₀.₅, π₀-FAST
+(``pi0_fast_*``) or advantage estimator (``ADVANTAGE_TORCH_*``) config) and
+``--data-path``. Those modes hold all checkpoints on the card at once: 6.7 GB
+each in bf16 for π₀.₅,
 plus the f32 mixed model (13.4 GB) and, for the gradient modes, its gradient
 (13.4 GB); the script raises with the bytes needed if they do not fit.
 

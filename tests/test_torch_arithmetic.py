@@ -20,7 +20,8 @@ JAX's debug model costs about 0.9 s on an 8-core CPU.
   on the f32 files, and both raising on a key mismatch and on weights whose sum
   is not 1.
 - ``Ensemble`` against ``DeviceEnsemble`` (built and jitted once for the
-  module): vertex losses within 1e-5 relative, the loss and weight gradient at
+  module; the π₀-FAST and estimator families are held in
+  ``test_torch_arithmetic_{fast,estimator}.py``): vertex losses within 1e-5 relative, the loss and weight gradient at
   a non-vertex within 1e-5 and 1e-4 x max, 3 iterations of (adaptive)
   gradient descent within 1e-5, greedy (grid 2) equal. Two batches average
   as one batch twice (the gradient accumulates across batches in place).
@@ -34,6 +35,7 @@ JAX's debug model costs about 0.9 s on an 8-core CPU.
   devices).
 """
 
+import dataclasses
 import functools
 import json
 import pathlib
@@ -54,6 +56,7 @@ from kai0_tpu.training import config as jax_config
 from kai0_tpu.transforms import flatten_dict, unflatten_dict
 from kai0_tpu_torch import interop
 from kai0_tpu_torch.arithmetic import core
+from kai0_tpu_torch.models import advantage
 from kai0_tpu_torch.models import pi0 as torch_pi0
 from kai0_tpu_torch.training import config as torch_config
 
@@ -270,8 +273,12 @@ def test_ensemble_refuses_a_checkpoint_without_a_parameter_and_other_model_types
     model_config = torch_config.get_config(CONFIG).model
     with pytest.raises(KeyError, match="action_out_proj.bias"):
         core.Ensemble([tmp_path], model_config, device="cpu")
-    with pytest.raises(NotImplementedError, match="π₀ / π₀.₅"):
-        core.Ensemble([tmp_path], torch_config.get_config("pi0_fast_libero").model, device="cpu")
+    # Every family mixes (tests/test_torch_arithmetic_{fast,estimator}.py); an estimator's is refused for a
+    # π₀.₅ checkpoint, which has no value head.
+    estimator = advantage.AdvantageEstimatorConfig(**{f.name: getattr(model_config, f.name)
+                                                      for f in dataclasses.fields(model_config) if f.init})
+    with pytest.raises(KeyError, match="value_head"):
+        core.Ensemble([setup["paths"][0]], estimator, device="cpu")
 
 
 # -- the scripts ---------------------------------------------------------------------------------

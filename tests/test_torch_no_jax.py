@@ -40,6 +40,7 @@ import kai0_tpu_torch
 names = ["kai0_tpu_torch"] + [m.name for m in pkgutil.walk_packages(kai0_tpu_torch.__path__, "kai0_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert "kai0_tpu_torch.training.bench_defaults" in names, names
 importlib.import_module("chip_smoke")
 for i, path in enumerate({scripts!r}):
     spec = importlib.util.spec_from_file_location(f"port_script_{{i}}", path)
@@ -61,7 +62,8 @@ def test_the_port_imports_neither_jax_nor_the_jax_package():
                                          "compute_norm_stats_fast_torch.py", "space_mirroring_torch.py",
                                          "time_scaling_torch.py", "convert_h5_lerobot_torch.py",
                                          "merge_lerobot_torch.py", "split_lerobot_torch.py",
-                                         "inference_client_torch.py", "dagger_collect_torch.py"}
+                                         "inference_client_torch.py", "dagger_collect_torch.py",
+                                         "check_convergence_torch.py", "check_convergence_onchip_torch.py"}
 
 
 def test_no_import_statement_of_jax_or_the_jax_package_at_any_depth():
