@@ -396,6 +396,30 @@ Phases, none of which catches an error (any failure exits non-zero):
     arms within phase 23 (a)'s 5%. The 100- to 300-step trajectories are
     the script's own runs (PERF.md).
 
+26. The RLDS DROID stream without TensorFlow: (a) the port's writer
+    (``kai0_tpu_torch/data/rlds.py``) makes ``droid`` 1.0.1 (8 episodes) and
+    ``polaris_droid_cotrain_dataset`` 1.0.0 (4) of 60 steps in tfds's
+    layout, DROID's schema and published shapes (three 180x320 JPEG
+    cameras, 7 joints and a gripper, three instructions a step); every
+    fourth episode's path lacks "success", and an idle-filter JSON keeps
+    droid episode 1's steps [0, 20) and [35, 60) only; the norm stats of
+    their states and delta actions by the port's ``RunningStats``. (b) The
+    stream alone: ``pi05_full_droid_finetune``'s data config with the
+    PolaRiS mix (0.9 / 0.1) and the filter, batch 32, the default
+    250,000-frame shuffle buffer: seconds to the first batch (the fill),
+    frames/s over 30 batches, the decode's thread-seconds (cv2, after the
+    buffer), the mix's share within 4.5 binomial standard deviations of
+    0.1, every finished epoch's counts (episodes, success episodes, frames,
+    frames kept) equal to the written data's, and each frame's action chunk,
+    state, prompt and image shape held on the host to its episode. (c)
+    ``train_lib.main`` on ``pi05_droid_jointpos_polaris`` at full width, 4
+    steps at batch 32 (the config's 128 cut), phase 9's memory
+    configuration, the seeded init, the local norm stats, a 20,000-frame
+    buffer (the default's fill is (b)'s), the last save left out: finite losses, phase 9's launches a step, step ms, samples/s, peak,
+    and the ms the loader's producer takes for a batch (stream and
+    transforms) against a step's: the stream must feed at least what the
+    step takes.
+
 Build: ptxas's register and spill lines of every kernel are printed; the
 tensor-core attention kernels, the ``wgmma`` and split int8 kernels, the
 all-tensors AdamW kernel and K5's register kernel must not spill.
@@ -446,7 +470,8 @@ mode (K1f, K2f; K1b for rtc); phase 23 (e)'s ``launches_serving_sb`` (K1f,
 K2f, K5, K4b: its graph's capture) and, under ``sb_serving``, K5's and K4b's
 times at its shapes; phase 21 (h)'s ``launches_arithmetic_fast_gd_iteration``
 and ``launches_arithmetic_estimator_gd_iteration``; phase 25's
-``launches_convergence_sb_step`` (a step of the SwitchBack ``--full-ft`` arm).
+``launches_convergence_sb_step`` (a step of the SwitchBack ``--full-ft`` arm);
+phase 26's ``launches_rlds_train`` (its 4 steps through the RLDS stream).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -2520,7 +2545,8 @@ def robot_edge(policy, port: int) -> dict:
     t = time.perf_counter()
     native.load()
     load_s = time.perf_counter() - t
-    built = f"built in {native.build_seconds}s" if native.build_seconds is not None else "already built"
+    built = (f"built in {native.build_seconds['stream_buffer']}s" if "stream_buffer" in native.build_seconds
+             else "already built")
     print(f"robot edge: native buffers {native.library_path().relative_to(root)} {built} (load {load_s:.2f}s); "
           + _toolchain_probe())
     _check(isinstance(deploy.make_stream_buffer(), native_buffers.NativeStreamActionBuffer)
@@ -2684,7 +2710,7 @@ TRAIN_ENTRY_STEPS, TRAIN_ENTRY_RESUMED = 4, 6  # the first run's steps, and the 
 TRAIN_STEP_LAUNCHES = {"flash_mha": 36, "flash_mha_bwd": 18, "flash_mhsa": 54, "flash_mhsa_bwd": 27, "adam_q8": 1,
                        "row_quant": 0, "row_quant_colscale": 0, "int8_matmul": 0, "int8_matmul_lora": 0}
 # What could read and decode LeRobot data here, what the JAX package's data tools use (not promised here), and
-# what the RLDS stream (ROADMAP item 4) would need; those two are looked up, not imported.
+# what the JAX package's RLDS stream needs (the port's reads the shards itself); those two are looked up, not imported.
 DECODER_PROBE = ("pyarrow", "cv2", "av", "torchvision", "decord", "pandas", "h5py", "tqdm", "tensorflow",
                  "tensorflow_datasets")
 PROBE_BY_METADATA = ("tensorflow", "tensorflow_datasets")
@@ -5036,6 +5062,262 @@ def convergence() -> dict:
     return arms["sb"][1]
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the RLDS DROID stream
+# ---------------------------------------------------------------------------
+
+RLDS_DATASETS = {"droid": ("1.0.1", 8), "polaris_droid_cotrain_dataset": ("1.0.0", 4)}  # version, episodes
+RLDS_STEPS, RLDS_HW = 60, (180, 320)  # steps an episode; DROID's camera size
+RLDS_IDLE = ("droid", 1, ((0, 20), (35, 60)))  # the filter keeps these steps of this episode, and the others whole
+RLDS_STREAM_CONFIG, RLDS_TRAIN_CONFIG = "pi05_full_droid_finetune", "pi05_droid_jointpos_polaris"
+RLDS_MIX = {"droid": 0.9, "polaris_droid_cotrain_dataset": 0.1}  # the PolaRiS mix
+RLDS_BATCHES = 30  # (b): batches timed after the first
+RLDS_TRAIN_BUFFER = 20_000  # (c)'s shuffle buffer: the default's 250,000-frame fill is (b)'s to measure
+RLDS_TRAIN_STEPS = 4
+RLDS_SIGMAS = 4.5
+
+
+def _rlds_failed(i: int) -> bool:
+    return i % 4 == 3  # episodes 3 and 7: no "success" in the path
+
+
+def _rlds_episode(rng: np.random.Generator, name: str, i: int) -> dict:
+    """One synthetic episode in DROID's RLDS schema: smooth camera frames with noise, shifted a column a step (the
+    writer's JPEGs are about 19 KB a frame), float32 joints and gripper (stored at float32 width)."""
+    h, w = RLDS_HW
+    y, x = np.mgrid[0:h, 0:w]
+
+    def frame():
+        base = np.sin(x / rng.uniform(10, 40)) * 60 + np.cos(y / rng.uniform(10, 40)) * 60 + 128
+        return np.clip(np.stack([base + rng.normal(0, 4, (h, w)) for _ in range(3)], -1), 0, 255).astype(np.uint8)
+
+    cameras = {key: np.stack([np.roll(base, t, axis=1) for t in range(RLDS_STEPS)]) for key, base in
+               (("exterior_image_1_left", frame()), ("exterior_image_2_left", frame()), ("wrist_image_left", frame()))}
+    walk = lambda: np.cumsum(rng.normal(0, 0.02, (RLDS_STEPS, 7)), 0).astype(np.float32)  # noqa: E731
+    state = walk()
+    gripper = rng.uniform(0, 1, (RLDS_STEPS, 1)).astype(np.float32)
+    return {
+        "steps": {
+            "action_dict": {"joint_position": state + rng.normal(0, 0.01, state.shape).astype(np.float32),
+                            "joint_velocity": rng.normal(0, 0.1, (RLDS_STEPS, 7)).astype(np.float32),
+                            "gripper_position": np.roll(gripper, -1, 0)},
+            "observation": {**cameras, "joint_position": state, "gripper_position": gripper},
+            **{key: [f"{name} {i}: {verb} the cup"] * RLDS_STEPS for key, verb in
+               (("language_instruction", "pick up"), ("language_instruction_2", "grab"),
+                ("language_instruction_3", "lift"))},
+        },
+        "episode_metadata": {
+            "file_path": f"/{name}/{i}/{'failure' if _rlds_failed(i) else 'success'}/trajectory.h5",
+            "recording_folderpath": f"/{name}/{i}/recordings",
+        },
+    }
+
+
+def _rlds_check_frames(batches: list, episodes: dict, horizon: int) -> int:
+    """Each frame's action chunk (joints ++ gripper, the tail clamped), state, prompt and image shape against its
+    episode, and that its step passes the filters; returns the frames checked."""
+    name, idle_episode, ranges = RLDS_IDLE
+    checked = 0
+    for batch in batches:
+        for j, step_id in enumerate(batch["step_id"]):
+            recording, _, t = step_id.decode().rpartition("--")
+            dataset, i = recording.split("/")[1], int(recording.split("/")[2])
+            t = int(t)
+            steps = episodes[dataset][i]["steps"]
+            rows = np.minimum(np.arange(t, t + horizon), RLDS_STEPS - 1)
+            want = np.concatenate([steps["action_dict"]["joint_position"], steps["action_dict"]["gripper_position"]],
+                                  -1)[rows].astype(np.float64)
+            prompts = {steps[k][0].encode() for k in ("language_instruction", "language_instruction_2",
+                                                      "language_instruction_3")}
+            _check(np.array_equal(batch["actions"][j], want)
+                   and np.array_equal(batch["observation"]["joint_position"][j],
+                                      steps["observation"]["joint_position"][t].astype(np.float64))
+                   and batch["prompt"][j] in prompts and not _rlds_failed(i)
+                   and batch["observation"]["image"][j].shape == (*RLDS_HW, 3)
+                   and ((dataset, i) != (name, idle_episode) or any(a <= t < b for a, b in ranges)),
+                   f"rlds: the frame {step_id!r} is not its episode's")
+            checked += 1
+    return checked
+
+
+def _rss_gib() -> float:
+    """This process's resident memory now, GiB (``/proc/self/statm``)."""
+    import os
+
+    return int(pathlib.Path("/proc/self/statm").read_text().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+def rlds_stream() -> dict:
+    """Phase 26: the RLDS DROID stream, alone and through ``train_lib.main`` at full width; returns the launches of
+    the training steps."""
+    import gc
+    import os
+    import tempfile
+
+    from kai0_tpu_torch.data import rlds
+    from kai0_tpu_torch.shared import normalize
+    from kai0_tpu_torch.training import checkpoints, data_loader, droid_rlds_dataset, train_lib, weight_loaders
+    from kai0_tpu_torch.training import config as train_config
+
+    os.environ["WANDB_MODE"] = "disabled"
+    with tempfile.TemporaryDirectory(prefix="kai0_rlds_") as root:
+        root = pathlib.Path(root)
+        # (a) the shards, the filter and the norm stats
+        rng = np.random.default_rng(26)
+        t = time.perf_counter()
+        episodes = {name: [_rlds_episode(rng, name, i) for i in range(n)] for name, (_, n) in RLDS_DATASETS.items()}
+        made_s = time.perf_counter() - t
+        t = time.perf_counter()
+        shards = [p for name, (version, n) in RLDS_DATASETS.items()
+                  for p in rlds.write_dataset(root, name, version, episodes[name], num_shards=n // 2)]
+        written_s = time.perf_counter() - t
+        for episode in (e for es in episodes.values() for e in es):  # the host checks read no pixels
+            for key in ("exterior_image_1_left", "exterior_image_2_left", "wrist_image_left"):
+                del episode["steps"]["observation"][key]
+        print(f"rlds: {sum(n for _, n in RLDS_DATASETS.values())} episodes x {RLDS_STEPS} steps ({RLDS_DATASETS}), "
+              f"three {RLDS_HW} cameras; made in {made_s:.1f}s, {len(shards)} shards written by the port's writer "
+              f"(the cameras as JPEG) in {written_s:.2f}s, {sum(p.stat().st_size for p in shards)} bytes")
+        name, idle_episode, ranges = RLDS_IDLE
+        keep = {f"{e['episode_metadata']['recording_folderpath']}--{e['episode_metadata']['file_path']}":
+                [list(r) for r in ranges] if i == idle_episode else [[0, RLDS_STEPS]]
+                for i, e in enumerate(episodes[name])}
+        (root / "filter.json").write_text(json.dumps(keep))
+        stats = {"state": normalize.RunningStats(), "actions": normalize.RunningStats()}
+        for episode in (e for es in episodes.values() for e in es):
+            steps = episode["steps"]
+            state = np.concatenate([steps["observation"]["joint_position"], steps["observation"]["gripper_position"]],
+                                   -1).astype(np.float64)
+            actions = np.concatenate([steps["action_dict"]["joint_position"],
+                                      steps["action_dict"]["gripper_position"]], -1).astype(np.float64)
+            stats["state"].update(state)
+            stats["actions"].update(np.concatenate([actions[:, :7] - state[:, :7], actions[:, 7:]], -1))
+        normalize.save(root / "assets" / "droid", {k: v.get_statistics() for k, v in stats.items()})
+        assets = train_config.AssetsConfig(assets_dir=str(root / "assets"), asset_id="droid")
+
+        # (b) the stream alone
+        base = train_config.get_config(RLDS_STREAM_CONFIG)
+        data_config = dataclasses.replace(base.data, rlds_data_dir=str(root), assets=assets).create(
+            base.assets_dirs, base.model)
+        data_config = dataclasses.replace(data_config, rlds_datasets=tuple(
+            droid_rlds_dataset.RLDSDataset(n, RLDS_DATASETS[n][0], w,
+                                           filter_dict_path=str(root / "filter.json") if n == name else None)
+            for n, w in RLDS_MIX.items()))
+        stream = data_loader.create_rlds_dataset(data_config, base.model.action_horizon, TRAIN_BATCH, seed=26)
+        print(f"rlds: the stream alone: {RLDS_STREAM_CONFIG}'s data config, mix {RLDS_MIX} with the filter on droid, "
+              f"batch {TRAIN_BATCH}, horizon {base.model.action_horizon}, shuffle buffer {stream.shuffle_buffer_size}, "
+              f"{stream.num_parallel_calls} decode threads, action space {data_config.action_space}")
+        with _Calls(droid_rlds_dataset, "_decoded", sync=False) as decodes:
+            rss_before = _rss_gib()
+            t = time.perf_counter()
+            batches = iter(stream)
+            first = [next(batches)]
+            first_s = time.perf_counter() - t
+            rss_after = _rss_gib()
+            before = len(decodes.rows)
+            t = time.perf_counter()
+            timed_batches = [next(batches) for _ in range(RLDS_BATCHES)]
+            wall_s = time.perf_counter() - t
+            decode_ms = decodes.ms[before:]
+        batches.close()
+        frames = RLDS_BATCHES * TRAIN_BATCH
+        print(f"  first batch after {first_s:.2f}s (the buffer's fill; resident memory {rss_before:.2f} -> "
+              f"{rss_after:.2f} GiB); then "
+              f"{RLDS_BATCHES} batches in {wall_s:.3f}s = {frames / wall_s:.1f} frames/s; the decode (two JPEGs a "
+              f"frame, cv2) {sum(decode_ms) / 1000:.3f} thread-s over those batches ({statistics.median(decode_ms):.3f}"
+              f" ms a frame, median), {sum(decode_ms) / 1000 / wall_s:.3f} thread-s a second of wall")
+        all_batches = first + timed_batches
+        step_ids = [s for b in all_batches for s in b["step_id"]]
+        polaris = sum(s.startswith(b"/polaris_droid_cotrain_dataset/") for s in step_ids)
+        n, p = len(step_ids), RLDS_MIX["polaris_droid_cotrain_dataset"]
+        bound = RLDS_SIGMAS * (n * p * (1 - p)) ** 0.5
+        print(f"  mix: {polaris} of {n} frames from polaris_droid_cotrain_dataset = {polaris / n:.4f} (want {p} "
+              f"within {bound / n:.4f}, {RLDS_SIGMAS} binomial standard deviations)")
+        _check(abs(polaris - n * p) <= bound, f"rlds: mix share {polaris / n}")
+        for source in stream.sources:
+            dataset = source.config.name
+            failed = sum(_rlds_failed(i) for i in range(RLDS_DATASETS[dataset][1]))
+            success = RLDS_DATASETS[dataset][1] - failed
+            kept = success * RLDS_STEPS - (RLDS_STEPS - sum(b - a for a, b in ranges) if dataset == name else 0)
+            want = {"episodes": RLDS_DATASETS[dataset][1], "success_episodes": success,
+                    "frames": success * RLDS_STEPS, "kept_frames": kept}
+            print(f"  {dataset}: {len(source.epochs)} epochs read in full, each {source.epochs[0]} (want {want})")
+            _check(source.epochs and all(e == want for e in source.epochs), f"rlds: {dataset}'s epoch counts")
+        checked = _rlds_check_frames(all_batches, episodes, base.model.action_horizon)
+        print(f"  {checked} frames held on the host to their episodes: action chunks (the tail clamped) and states "
+              f"bit-equal, prompts among the episode's three, images {all_batches[0]['observation']['image'].shape[1:]}")
+        del stream, batches, first, timed_batches, all_batches
+        gc.collect()
+
+        # (c) train through the stream
+        base = train_config.get_config(RLDS_TRAIN_CONFIG)
+        config = dataclasses.replace(
+            _train_entry_config(dataclasses.replace(base, data=dataclasses.replace(
+                base.data, rlds_data_dir=str(root), assets=assets)), str(root / "checkpoints"),
+                num_train_steps=RLDS_TRAIN_STEPS, num_workers=0, wandb_enabled=False,
+                weight_loader=weight_loaders.NoOpWeightLoader()),
+            exp_name="rlds")
+        print(f"rlds: train_lib.main({RLDS_TRAIN_CONFIG!r}) through the stream: batch {TRAIN_BATCH} (the config's "
+              f"{base.batch_size} cut), {RLDS_TRAIN_STEPS} steps, horizon {base.model.action_horizon}, phase 9's memory "
+              f"configuration, the seeded init (the config's gs:// checkpoint is a download), the local norm stats, "
+              f"a shuffle buffer of {RLDS_TRAIN_BUFFER} frames ((b) measured the default's fill), the last step's "
+              f"save left out")
+        produce_ms = []
+        host_batches = data_loader.RLDSLoader._host_batches
+
+        def timed_host_batches(self):
+            inner = host_batches(self)
+            try:
+                while True:
+                    t = time.perf_counter()
+                    try:
+                        batch = next(inner)
+                    except StopIteration:
+                        return
+                    produce_ms.append((time.perf_counter() - t) * 1000)
+                    yield batch
+            finally:
+                inner.close()
+
+        saved, buffer = checkpoints.save_state, droid_rlds_dataset.DEFAULT_SHUFFLE_BUFFER
+        checkpoints.save_state = lambda *args, **kwargs: 0
+        data_loader.RLDSLoader._host_batches = timed_host_batches
+        droid_rlds_dataset.DEFAULT_SHUFFLE_BUFFER = RLDS_TRAIN_BUFFER
+        try:
+            with _Calls(data_loader, "create_data_loader",
+                        keep=lambda args, out: out.data_config().norm_stats) as loaders:
+                _reset_launches()
+                recorder = _StepRecorder("rlds", TRAIN_BATCH, TRAIN_STEP_LAUNCHES)
+                t = time.perf_counter()
+                recorder.start()
+                model, state = train_lib.main(config, on_step=recorder)
+                total_s = time.perf_counter() - t
+                launches = _read_launches()
+        finally:
+            checkpoints.save_state = saved
+            data_loader.RLDSLoader._host_batches = host_batches
+            droid_rlds_dataset.DEFAULT_SHUFFLE_BUFFER = buffer
+        (_, norm_stats), = loaders.rows
+        step_ms = statistics.median(r["wall_ms"] for r in recorder.rows[1:])
+        produced = produce_ms[1:]
+        print(f"  rlds main: {total_s:.1f}s in all; median wall_ms over steps 1-{RLDS_TRAIN_STEPS - 1} = {step_ms:.2f} "
+              f"({TRAIN_BATCH / step_ms * 1000:.3f} samples/s); losses {[round(r['loss'], 6) for r in recorder.rows]}; "
+              f"loader wait ms {[round(r['loader_wait_ms'], 3) for r in recorder.rows]}; peak GiB "
+              f"{[round(r['peak_gib'], 3) for r in recorder.rows]}; launches over {RLDS_TRAIN_STEPS} steps "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        ratio = step_ms / statistics.median(produced)
+        print(f"  the loader's producer, ms a batch of {TRAIN_BATCH} (stream, decode, the transforms frame by frame, "
+              f"the stack): the first {produce_ms[0]:.1f} (the fill), then {[round(ms, 1) for ms in produced]}; median "
+              f"{statistics.median(produced):.1f} ms = {TRAIN_BATCH / statistics.median(produced) * 1000:.3f} samples/s "
+              f"against the step's {TRAIN_BATCH / step_ms * 1000:.3f}: {ratio:.2f}x what the step takes")
+        _check(state.step == RLDS_TRAIN_STEPS and norm_stats is not None and ratio >= 1.0,
+               f"rlds main: step {state.step}, norm stats {norm_stats is not None}, the stream at {ratio:.2f}x the step")
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"rlds: temporary files deleted; {torch.cuda.memory_allocated() / 2**30:.3f} GiB still allocated")
+    return launches
+
+
 def timed(label: str, fn, *args):
     start = time.perf_counter()
     out = fn(*args)
@@ -5098,6 +5380,7 @@ def main() -> int:
     for name, numbers in arithmetic["records"].items():
         record[name].update(numbers)
     aligned_launches = timed("22 train-deploy alignment", train_deploy_alignment)
+    rlds_launches = timed("26 rlds", rlds_stream)
 
     sources = {
         "flash_mha": ("kai0_tpu_torch/ops/csrc/flash_mqa_fwd.cu", "kai0_tpu/ops/pallas_attention.py:109"),
@@ -5178,6 +5461,11 @@ def main() -> int:
         if name in ("flash_mha", "flash_mha_bwd", "flash_mhsa", "flash_mhsa_bwd", "adam_q8"):
             _check(aligned_launches[name] > 0, f"{name} was not launched by phase 22's training")
         entry["launches_aligned_train"] = aligned_launches[name]
+        # launches_rlds_train: phase 26's 4 steps of train_lib.main through the RLDS stream, counted from 0 set just
+        # before main (K4, K5: 0, the path has no int8).
+        if name in ("flash_mha", "flash_mha_bwd", "flash_mhsa", "flash_mhsa_bwd", "adam_q8"):
+            _check(rlds_launches[name] > 0, f"{name} was not launched by phase 26's training")
+        entry["launches_rlds_train"] = rlds_launches[name]
         # launches_sb_train: one step of phase 23 (a)'s SwitchBack full fine-tune; launches_serving_siglip_int8: the
         # capture of phase 23 (d)'s SigLIP + Gemma int8 request; each counted from 0 set just before.
         if name in ("row_quant", "row_quant_colscale", "int8_matmul"):

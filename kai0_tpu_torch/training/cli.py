@@ -6,8 +6,7 @@ any dataclass field of the named config is overridable by its dotted path
 an ``Optional`` dataclass left at None is instantiated from its annotation),
 values convert to the current value's type (bool, int, float, comma lists)
 or the annotation's, ``none``/``null`` give None, a bare ``--flag`` is true,
-and an unknown config or field name gets did-you-mean suggestions. A config
-of the JAX registry that the port does not have yet exits with what it needs.
+and an unknown config or field name gets did-you-mean suggestions.
 """
 
 from __future__ import annotations
@@ -103,11 +102,6 @@ def cli(configs: dict[str, object], argv: list[str] | None = None):
         raise SystemExit(f"Usage: <config-name> [--field.path=value ...]\nAvailable configs:\n  {names}")
     name = argv[0]
     if name not in configs:
-        from kai0_tpu_torch.training import robot_configs
-
-        if name in robot_configs.PENDING:
-            raise SystemExit(f"Config {name!r} needs {robot_configs.PENDING[name]}, which the port does not have yet; "
-                             "the JAX package (scripts/train.py) trains it")
         close = difflib.get_close_matches(name, configs.keys(), n=5)
         raise SystemExit(f"Unknown config {name!r}. Did you mean one of: {close}?")
 

@@ -13,8 +13,7 @@ did-you-mean message.
 ``assets_dirs``), those the train step reads (``train_lib.train_step``) and
 those of the training loop (``train_lib.main``: seed, batch, workers, steps,
 intervals, checkpoint directory and retention, resume, weight loader,
-profiling), with JAX's defaults. A named config whose data path the port does
-not have yet raises from ``get_config`` with the ROADMAP item that ports it.
+profiling), with JAX's defaults.
 """
 
 from __future__ import annotations
@@ -87,8 +86,11 @@ class DataConfig:
     # Train-time time scaling (TimeScaledView: every Nth frame; 1 = off), the offline time_scale_dataset as a view.
     # The offline split mode stays augment/time_scaling.time_scaling_with_split.
     augment_time_scale: int = 1
-    # The RLDS stream of the JAX package: the port's loader raises on it (ROADMAP Queue 1 item 4).
+    # When ``rlds_data_dir`` is set the loader streams RLDS (training/droid_rlds_dataset.py) instead of LeRobot: the
+    # action space and the weighted mix of RLDS datasets it reads.
     rlds_data_dir: str | None = None
+    action_space: Any | None = None
+    rlds_datasets: Sequence[Any] = ()
 
 
 class GroupFactory(Protocol):
@@ -345,19 +347,11 @@ def registry() -> dict[str, TrainConfig]:
 
 
 def get_config(config_name: str) -> TrainConfig:
-    """A named config; a name the port does not serve yet raises with its ROADMAP item, an unknown one with
-    did-you-mean suggestions."""
-    from kai0_tpu_torch.training import robot_configs
-
+    """A named config; an unknown name raises with did-you-mean suggestions."""
     configs = registry()
     if config_name in configs:
         return configs[config_name]
-    if config_name in robot_configs.PENDING:
-        raise NotImplementedError(
-            f"Config {config_name!r} needs {robot_configs.PENDING[config_name]}, which the port does not have yet; "
-            "the JAX package (kai0_tpu.training.config) serves it"
-        )
-    closest = difflib.get_close_matches(config_name, [*configs, *robot_configs.PENDING], n=5, cutoff=0.0)
+    closest = difflib.get_close_matches(config_name, list(configs), n=5, cutoff=0.0)
     raise ValueError(f"Config {config_name!r} not found. Did you mean one of: {closest}?")
 
 

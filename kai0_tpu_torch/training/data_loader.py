@@ -12,8 +12,7 @@ Counterpart of ``kai0_tpu/training/data_loader.py:52-428``:
   estimator wrapped in ``AdvantageLerobotDataset`` (each frame paired with a
   comparison frame of its episode), with ``augment_time_scale`` /
   ``augment_mirror`` wrapped in ``TimeScaledView`` then ``MirroredView``
-  (``data/augment_views.py``). The RLDS stream raises with the ROADMAP item
-  that ports it.
+  (``data/augment_views.py``).
 - ``DataLoader`` walks JAX's index stream (a permutation seeded by
   ``seed + epoch`` per epoch, the last partial batch dropped with
   ``drop_last``) and collates items with ``np.stack`` (64-bit arrays then
@@ -25,6 +24,11 @@ Counterpart of ``kai0_tpu/training/data_loader.py:52-428``:
   waits on the copy's event, and the tensors are recorded on that stream.
   Batches arrive as ``(Observation, actions)`` on the loader's device, uint8
   images mapped to [-1, 1] there.
+- ``RLDSLoader``: the RLDS DROID stream (``droid_rlds_dataset.DroidRldsDataset``,
+  built by ``create_rlds_dataset`` when the data config sets ``rlds_data_dir``)
+  through the transform stack frame by frame, each batch's frames then stacked
+  (the reference's ``IterableTransformedDataset(is_batched=True)``), on the
+  same producer thread and pinned copy.
 - ``create_data_loader`` returns the data config with the loader
   (``DataLoaderImpl``), for the checkpoint's norm-stats assets.
 """
@@ -233,10 +237,16 @@ class DataLoader:
             items = [self._dataset[int(i)] for i in batch_indices]
         return _stack(items)
 
+    def _host_batches(self) -> Iterator[dict]:
+        """Collated numpy batches, without end."""
+        pool = self._process_pool() if self._num_workers > 0 else None
+        for batch_indices in self._index_stream():
+            yield self._collate(pool, batch_indices)
+
     def __iter__(self):
         device = self._device
         cuda = device.type == "cuda"
-        pool = self._process_pool() if self._num_workers > 0 else None
+        batches = self._host_batches()
         copy_stream = torch.cuda.Stream(device) if cuda else None
         prefetch: queue.Queue = queue.Queue(maxsize=2)
         stop = threading.Event()
@@ -267,11 +277,14 @@ class DataLoader:
 
         def producer():
             try:
-                for batch_indices in self._index_stream():
-                    if stop.is_set() or not put_until_stopped(to_device(self._collate(pool, batch_indices))):
+                for batch in batches:
+                    if stop.is_set() or not put_until_stopped(to_device(batch)):
                         return
+                put_until_stopped(StopIteration())
             except Exception as e:  # noqa: BLE001 — handed to the consumer, which raises it
                 put_until_stopped(e)
+            finally:
+                batches.close()
 
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
@@ -279,6 +292,8 @@ class DataLoader:
         try:
             while self._num_batches is None or produced < self._num_batches:
                 item = prefetch.get()
+                if isinstance(item, StopIteration):  # a finite stream has ended
+                    return
                 if isinstance(item, Exception):
                     raise item
                 batch, event = item
@@ -300,6 +315,42 @@ class DataLoader:
                 except queue.Empty:
                     break
             thread.join(timeout=10)
+
+
+class RLDSLoader(DataLoader):
+    """Batches of the RLDS stream on ``device``, each frame through the transform stack (reference
+    ``IterableTransformedDataset(is_batched=True)`` + ``RLDSDataLoader``)."""
+
+    def __init__(self, rlds_dataset, transforms, *, device: torch.device | str = "cuda",
+                 num_batches: int | None = None):
+        super().__init__(rlds_dataset, batch_size=rlds_dataset.batch_size, device=device, num_workers=0,
+                         num_batches=num_batches)
+        self._transforms = list(transforms)
+
+    def _transformed(self, frame: dict) -> dict:
+        for transform in self._transforms:
+            frame = transform(frame)
+        return frame
+
+    def _host_batches(self) -> Iterator[dict]:
+        for batch in self._dataset:
+            frames = [_map(lambda x, i=i: x[i], batch) for i in range(len(batch["actions"]))]
+            yield _stack([self._transformed(frame) for frame in frames])
+
+
+def create_rlds_dataset(data_config, action_horizon: int, batch_size: int, *, shuffle: bool = True, seed: int = 0):
+    """The RLDS DROID stream of a data config (``kai0_tpu/training/data_loader.py:362-372``)."""
+    from kai0_tpu_torch.training import droid_rlds_dataset as _rlds
+
+    return _rlds.DroidRldsDataset(
+        data_config.rlds_data_dir,
+        batch_size,
+        list(data_config.rlds_datasets),
+        shuffle=shuffle,
+        action_chunk_size=action_horizon,
+        action_space=data_config.action_space or _rlds.DroidActionSpace.JOINT_POSITION,
+        seed=seed,
+    )
 
 
 class DataLoaderImpl:
@@ -332,7 +383,15 @@ def create_data_loader(
     if skip_norm_stats or config.skip_norm_stats:
         data_config = dataclasses.replace(data_config, norm_stats=None)
     if data_config.rlds_data_dir is not None:
-        raise NotImplementedError("rlds_data_dir: the RLDS (DROID) stream is ROADMAP Queue 1 item 4")
+        if data_config.augment_mirror or data_config.augment_time_scale != 1:
+            # The augmentation views wrap random-access LeRobot datasets; the stream has none: fail loudly instead of
+            # training unaugmented.
+            raise ValueError("augment_mirror/augment_time_scale are not supported on the RLDS path")
+        dataset = create_rlds_dataset(data_config, config.model.action_horizon, config.batch_size, shuffle=shuffle,
+                                      seed=config.seed)
+        loader = RLDSLoader(dataset, transform_stack(data_config, config.model), device=device,
+                            num_batches=num_batches)
+        return DataLoaderImpl(data_config, loader)
     dataset = create_dataset(data_config, config.model, advantage=config.advantage_estimator, split=config.split)
     dataset = TransformedDataset(dataset, transform_stack(data_config, config.model))
     loader = DataLoader(

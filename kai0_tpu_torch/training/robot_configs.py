@@ -12,18 +12,15 @@ Advantage estimators ``ADVANTAGE_TORCH_{KAI0,PI06}_FLATTEN_FOLD``, with the trai
 fields of the JAX configs (weight loaders, step counts, batch sizes, workers,
 retention). A weight loader reads a local ``model.safetensors``; the JAX
 configs' ``gs://`` checkpoints raise when loaded (the port downloads nothing).
-A config on ``RLDSDroidDataConfig`` serves, and its training raises in the
-loader: the ``tf.data`` stream is ROADMAP Queue 1 item 4.
-
-``PENDING`` names every config of the JAX registry that the port does not
-have yet, with what it needs; ``config.get_config`` raises on those names.
+A config on ``RLDSDroidDataConfig`` trains through the RLDS stream
+(``droid_rlds_dataset.py``), whose ``DroidActionSpace`` and ``RLDSDataset``
+this module re-exports.
 """
 
 from __future__ import annotations
 
 from collections.abc import Sequence
 import dataclasses
-import enum
 import pathlib
 
 from kai0_tpu_torch import transforms as _transforms
@@ -37,9 +34,7 @@ from kai0_tpu_torch.policies import agilex_policy, aloha_policy, arx_policy, dro
 from kai0_tpu_torch.training import config as _config
 from kai0_tpu_torch.training import optimizer as _optimizer
 from kai0_tpu_torch.training import weight_loaders
-
-_RLDS = "the RLDS data loader (ROADMAP Queue 1 item 4)"
-PENDING = dict.fromkeys(("pi05_full_droid_finetune", "pi05_droid_jointpos_polaris"), _RLDS)
+from kai0_tpu_torch.training.droid_rlds_dataset import DroidActionSpace, RLDSDataset
 
 
 def _model_transforms(model_config, default_prompt=None):
@@ -266,31 +261,14 @@ class LeRobotDROIDDataConfig(_config.DataConfigFactory):
         )
 
 
-class DroidActionSpace(enum.Enum):
-    """The action space of the DROID RLDS stream (``kai0_tpu/training/droid_rlds_dataset.py:29-31``)."""
-
-    JOINT_POSITION = enum.auto()
-    JOINT_VELOCITY = enum.auto()
-
-
-@dataclasses.dataclass(frozen=True)
-class RLDSDataset:
-    """One RLDS dataset of a weighted mix (``droid_rlds_dataset.py:34-39``)."""
-
-    name: str
-    version: str
-    weight: float
-    filter_dict_path: str | None = None
-
-
 @dataclasses.dataclass(frozen=True)
 class RLDSDroidDataConfig(_config.DataConfigFactory):
-    """DROID through the ``tf.data`` RLDS stream (``kai0_tpu/training/robot_configs.py:258-309``).
+    """DROID through the RLDS stream (``kai0_tpu/training/robot_configs.py:258-309``).
 
     The transforms are the JAX factory's (joint-position actions train on
-    deltas, the gripper absolute), so a config on it serves; the stream itself
-    is not ported and ``data_loader.create_data_loader`` raises on
-    ``rlds_data_dir``.
+    deltas, the gripper absolute); the data config carries the action space
+    and the mix (``droid`` 1.0.1 alone when ``datasets`` is empty) that
+    ``data_loader.create_rlds_dataset`` streams.
     """
 
     rlds_data_dir: str | None = None
@@ -300,6 +278,7 @@ class RLDSDroidDataConfig(_config.DataConfigFactory):
     def create(self, assets_dirs: pathlib.Path, model_config) -> _config.DataConfig:
         if self.rlds_data_dir is None:
             raise ValueError("Need to set rlds_data_dir for the RLDS data loader.")
+        datasets = self.datasets or (RLDSDataset(name="droid", version="1.0.1", weight=1.0),)
         action_space = self.action_space or DroidActionSpace.JOINT_POSITION
         repack_transforms = _transforms.Group(
             inputs=[
@@ -332,6 +311,8 @@ class RLDSDroidDataConfig(_config.DataConfigFactory):
             data_transforms=data_transforms,
             model_transforms=_model_transforms(model_config, None),
             rlds_data_dir=self.rlds_data_dir,
+            action_space=action_space,
+            rlds_datasets=datasets,
         )
 
 
@@ -570,8 +551,8 @@ def _roboarena_configs() -> list[_config.TrainConfig]:
 
 
 def _polaris_configs() -> list[_config.TrainConfig]:
-    """The PolaRiS DROID joint-position configs (``kai0_tpu/training/misc/polaris_config.py``) but the π₀.₅ one
-    (``PENDING``): DROID (0.9) + the PolaRiS cotrain set (0.1) over the RLDS stream, and a binning baseline."""
+    """The PolaRiS DROID joint-position configs (``kai0_tpu/training/misc/polaris_config.py``): DROID (0.9) + the
+    PolaRiS cotrain set (0.1) over the RLDS stream, and a binning baseline."""
     TrainConfig = _config.TrainConfig
     datasets = (
         RLDSDataset(name="droid", version="1.0.1", weight=0.9),
@@ -603,6 +584,7 @@ def _polaris_configs() -> list[_config.TrainConfig]:
         )
 
     return [
+        polaris_train("pi05_droid_jointpos_polaris", pi0_config.Pi0Config(action_horizon=15, pi05=True)),
         polaris_train("pi0_fast_droid_jointpos_polaris", pi0_fast_config.Pi0FASTConfig(action_dim=8, action_horizon=15)),
         polaris_train("pi0_droid_jointpos_polaris", pi0_config.Pi0Config(action_horizon=15, action_dim=8)),
         polaris_train(
@@ -652,6 +634,28 @@ def configs() -> list[_config.TrainConfig]:
             data=LeRobotDROIDDataConfig(repo_id="lerobot/droid_100"),
             lr_schedule=_optimizer.CosineDecaySchedule(peak_lr=5e-5, decay_lr=5e-5 / 10),
             weight_loader=weight_loaders.CheckpointWeightLoader(_PI05_GS),
+        ),
+        # The full DROID fine-tune over the RLDS stream (reference config.py:1071-1094).
+        TrainConfig(
+            name="pi05_full_droid_finetune",
+            model=pi0_config.Pi0Config(pi05=True, action_dim=32, action_horizon=16),
+            data=RLDSDroidDataConfig(
+                repo_id="droid",
+                rlds_data_dir="<path_to_droid_rlds_dataset>",
+                assets=_config.AssetsConfig(
+                    assets_dir="gs://openpi-assets/checkpoints/pi05_base/assets/", asset_id="droid"
+                ),
+            ),
+            weight_loader=weight_loaders.CheckpointWeightLoader(_PI05_GS),
+            lr_schedule=_optimizer.CosineDecaySchedule(
+                warmup_steps=1_000, peak_lr=5e-5, decay_steps=1_000_000, decay_lr=5e-5
+            ),
+            num_train_steps=100_000,
+            batch_size=256,
+            log_interval=100,
+            save_interval=5000,
+            keep_period=10_000,
+            num_workers=0,
         ),
         TrainConfig(
             name="pi05_droid_finetune",

@@ -17,8 +17,9 @@
   the 70 frames. Two spawn workers give the batches of the producer thread.
 - The index stream: equal to JAX's across an epoch boundary, with and
   without ``drop_last``.
-- The augmentation flags build the train-time views, the RLDS stream
-  raises; ``advantage=True`` builds the advantage estimator's dataset.
+- The augmentation flags build the train-time views (and raise on the RLDS
+  stream, which streams a local RLDS directory); ``advantage=True`` builds the
+  advantage estimator's dataset.
 """
 
 import dataclasses
@@ -28,6 +29,7 @@ import jax
 import numpy as np
 import pytest
 
+import _rlds_data
 import _sp_model
 from kai0_tpu.data import lerobot_dataset as jax_lerobot
 from kai0_tpu.data.lerobot_writer import LeRobotDatasetWriter, feature_spec
@@ -36,10 +38,10 @@ from kai0_tpu.models import tokenizer as jax_tokenizer
 from kai0_tpu.shared import normalize as jax_normalize
 from kai0_tpu.training import config as jax_config
 from kai0_tpu.training import data_loader as jax_data_loader
-from kai0_tpu_torch.data import lerobot_dataset
+from kai0_tpu_torch.data import lerobot_dataset, rlds
 from kai0_tpu_torch.models import pi0 as torch_pi0
 from kai0_tpu_torch.training import config as torch_config
-from kai0_tpu_torch.training import data_loader
+from kai0_tpu_torch.training import data_loader, droid_rlds_dataset
 
 from _torch_parity import DEBUG
 
@@ -188,7 +190,7 @@ def test_index_stream_matches_jax_across_epochs(drop_last):
         np.testing.assert_array_equal(a, b)
 
 
-def test_unported_data_paths_raise(dataset_root):
+def test_unported_data_paths_raise(dataset_root, tmp_path, monkeypatch):
     cfg = torch_config.get_config("debug_pi05")
     data = cfg.data.create(cfg.assets_dirs, cfg.model)
     with pytest.raises(ValueError, match="real LeRobot dataset"):
@@ -206,11 +208,19 @@ def test_unported_data_paths_raise(dataset_root):
 
     paired = data_loader.create_dataset(lerobot, cfg.model, advantage=True)
     assert isinstance(paired, advantage_dataset.AdvantageLerobotDataset) and len(paired) == sum(LENGTHS)
-    rlds = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, base_config=torch_config.DataConfig(
-        rlds_data_dir="/nonexistent")))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        data_loader.create_data_loader(rlds, device="cpu")
-    # A named config on the RLDS factory (served by the port) still raises in the loader.
+    # The RLDS stream (tests/test_torch_rlds*.py hold it to JAX's): a named config on the RLDS factory streams a local
+    # RLDS directory; the augmentation flags raise on it, with JAX's message.
+    rng = np.random.default_rng(4)
+    for name, version in (("droid", "1.0.1"), ("polaris_droid_cotrain_dataset", "1.0.0")):
+        rlds.write_dataset(tmp_path / "rlds", name, version, [_rlds_data.droid_episode(
+            rng, length=4, file_path=f"/{name}/{i}/success/t.h5", recording=f"/{name}/{i}") for i in range(2)])
+    monkeypatch.setattr(droid_rlds_dataset, "DEFAULT_SHUFFLE_BUFFER", 8)
     polaris = torch_config.get_config("pi0_droid_jointpos_polaris")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        data_loader.create_data_loader(polaris, device="cpu")
+    polaris = dataclasses.replace(polaris, batch_size=2, data=dataclasses.replace(
+        polaris.data, rlds_data_dir=str(tmp_path / "rlds")))
+    (obs, actions), = list(data_loader.create_data_loader(polaris, device="cpu", num_batches=1))
+    assert obs.images["base_0_rgb"].shape == (2, 224, 224, 3) and actions.shape == (2, 15, 8)
+    augmented = dataclasses.replace(polaris, data=dataclasses.replace(
+        polaris.data, base_config=torch_config.DataConfig(augment_mirror=True)))
+    with pytest.raises(ValueError, match="augment_mirror/augment_time_scale are not supported on the RLDS path"):
+        data_loader.create_data_loader(augmented, device="cpu")

@@ -2,8 +2,9 @@
 
 In a fresh interpreter, a ``sys.meta_path`` finder refuses ``jax`` (and
 ``jaxlib``), ``kai0_tpu`` with every submodule, ``safetensors`` and ``optax``, which
-the card's machine lacks too, and ``pandas`` and ``tqdm``, which it is not
-promised (the JAX package's data tools use them); then every module of
+the card's machine lacks too, ``pandas`` and ``tqdm``, which it is not
+promised (the JAX package's data tools use them), and ``tensorflow``,
+``tensorflow_datasets`` and ``dlimp``, which the RLDS stream does without; then every module of
 ``kai0_tpu_torch`` (found by ``pkgutil.walk_packages``), ``chip_smoke.py`` and
 the port's scripts (``scripts/*_torch.py``, ``scripts/time_*.py``) are
 imported, the scripts under another name than ``__main__``. Imports inside
@@ -17,7 +18,8 @@ import subprocess
 import sys
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-REFUSED = ("jax", "jaxlib", "kai0_tpu", "safetensors", "optax", "pandas", "tqdm")
+REFUSED = ("jax", "jaxlib", "kai0_tpu", "safetensors", "optax", "pandas", "tqdm", "tensorflow", "tensorflow_datasets",
+           "dlimp")
 SCRIPTS = sorted([*REPO.glob("scripts/*_torch.py"), *REPO.glob("scripts/time_*.py")])
 
 _CHILD = r"""

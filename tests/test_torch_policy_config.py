@@ -204,8 +204,11 @@ def test_every_named_config_is_served_or_names_its_roadmap_item(monkeypatch):
     assert {f"pi05_{t}_{k}" for t in ("flatten_fold", "tee_shirt_sort", "hang_cloth") for k in ("normal", "awbc")} <= set(
         torch_config_module.registry())
     assert {"debug", "debug_serve", "pi0_aloha", "pi0_fast_droid", "paligemma_vq_droid"} <= set(torch_config_module.registry())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        torch_config_module.get_config("pi05_full_droid_finetune")
+    # The two configs of the RLDS stream load, their data configs carry its mix.
+    for name, mix in (("pi05_full_droid_finetune", 1), ("pi05_droid_jointpos_polaris", 2)):
+        cfg = torch_config_module.get_config(name)
+        data = dataclasses.replace(cfg.data, rlds_data_dir="/rlds").create(cfg.assets_dirs, cfg.model)
+        assert cfg.name == name and data.rlds_data_dir == "/rlds" and len(data.rlds_datasets) == mix
     with pytest.raises(ValueError, match="Did you mean"):
         torch_config_module.get_config("pi05_flaten_fold_normal")
 
